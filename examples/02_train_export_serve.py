@@ -13,7 +13,7 @@ Pipeline (all net-new relative to the reference, which has no model layer):
      and the BitNet W1.58-A8 production path — per-token int8 activation
      quantization over ``TiledBitplane`` (2 bits/weight of HBM traffic).
 
-Run:  python examples/02_train_export_serve.py [--platform tpu]
+Run:  python examples/02_train_export_serve.py [--platform gpu]
 """
 
 import argparse

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """SPMD training of a ternary transformer LM over a device mesh.
 
-Runs a data x model (dp x tp) mesh — on real TPU chips if you have them, or
+Runs a data x model (dp x tp) mesh — on GPUs if you have them, or
 on an 8-device *virtual CPU mesh* anywhere (the default here), which is how
 the repo's multi-chip tests run (tests/conftest.py). The same code compiles
 for a real slice: GSPMD inserts the collectives from the shardings.
@@ -35,7 +35,7 @@ if "xla_force_host_platform_device_count" not in flags:
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")   # drop for a real TPU slice
+jax.config.update("jax_platforms", "cpu")   # drop to run on GPUs
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402

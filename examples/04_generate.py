@@ -9,7 +9,7 @@ cache — batched prompt prefill, then one token per step. Options shown:
   * ``kv_dtype=int8``  — 4x smaller KV cache, per-row absmax quantized
   * exported containers — inference runs through the SpMM kernel registry
 
-Run:  python examples/04_generate.py [--platform tpu]
+Run:  python examples/04_generate.py [--platform gpu]
 """
 
 import argparse

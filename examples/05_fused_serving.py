@@ -1,25 +1,20 @@
 #!/usr/bin/env python
-"""Serving fast paths: the fused SwiGLU FFN kernel and the merged-QKV
-container on an exported transformer block — and how to let measurement
-pick them.
+"""Serving fast paths: the merged-QKV container on an exported transformer
+block, the per-row int8 activation regime, and how to let measurement pick.
 
-Two block-level fusions (docs/perf.md §16, §19):
-
-* ``fused_ffn=True`` — the whole SwiGLU FFN (gate+up → silu·mul → per-row
-  int8 requantize → down) runs as ONE Pallas kernel; hidden activations
-  never leave VMEM. This is also the numerically-proper W1.58-A8 path.
-  Wins 8-20% at multi-row shapes (ffn_bench.json).
 * ``fused_qkv=True`` — q/k/v projections merged into one ternary container
-  over ``hstack(Wq, Wk, Wv)``: one SpMM instead of three (bit-identical).
+  over ``hstack(Wq, Wk, Wv)``: one SpMM instead of three, sharing the
+  activation read (and, with ``a8=True``, one per-row requantize).
+* ``a8=True`` — W1.58-A8: activations requantized per row to int8 before
+  every projection, which then runs on an int8 kernel (on a GPU at decode
+  row counts, the fused Triton bitplane kernel).
 
-The winners are SHAPE-DEPENDENT (at BitNet-3B the merged QKV plane pads
-9600 columns to three 4096 tiles and turning both flags on is a measured
-6.7% regression — fused_block_decode_3b.json), so the deployment API
-measures instead of guessing: ``ExportedTransformerLM.from_params(...,
-auto=True)`` probes the combinations at the decode shape and applies the
-fastest (``models/generate.py::autotune_serving_flags``, JSON-cacheable).
+Whether the merged container wins depends on the shape, so the deployment
+API can measure instead of guessing: ``ExportedTransformerLM.from_params(...,
+auto=True)`` times both at the decode shape and applies the faster
+(``models/generate.py::autotune_serving_flags``, JSON-cacheable).
 
-Run:  python examples/05_fused_serving.py [--platform tpu]
+Run:  python examples/05_fused_serving.py [--platform gpu]
 """
 
 import argparse
@@ -51,15 +46,12 @@ cfg = BitTransformerConfig(vocab=256, d_model=128, n_heads=4, d_ff=256,
                            n_layers=1)
 params = BitTransformerBlock(cfg).init(jax.random.key(0))
 
-# Export the same trained block two ways: plain, and with both serving
-# fast paths enabled. The flags are serving-only (they bypass the
-# custom-VJP layers) and fall back automatically when their kernel
-# contract is not met (batch > 128 rows, trained-in FFN biases, ...).
+# Export the same trained block two ways: separate and merged q/k/v. The
+# merged container is serving-only (it bypasses the custom-VJP layers).
 plain = ExportedTransformerBlock.from_params(
-    cfg, params, TiledBitplane, kernel="PallasTiledBitplane_i8")
+    cfg, params, TiledBitplane, a8=True)
 fast = ExportedTransformerBlock.from_params(
-    cfg, params, TiledBitplane, kernel="PallasTiledBitplane_i8",
-    fused_ffn=True, fused_qkv=True)
+    cfg, params, TiledBitplane, a8=True, fused_qkv=True)
 
 x = jax.random.normal(jax.random.key(1), (1, 8, cfg.d_model), jnp.float32)
 
@@ -67,10 +59,10 @@ x = jax.random.normal(jax.random.key(1), (1, 8, cfg.d_model), jnp.float32)
 run = jax.jit(lambda blk, z: blk(z))
 y_plain, y_fast = np.asarray(run(plain, x)), np.asarray(run(fast, x))
 
-print(f"decode-shaped block forward: {y_fast.shape}")
-print(f"fused-vs-plain max |delta| = {np.abs(y_fast - y_plain).max():.4f} "
-      "(the fused FFN applies the per-row A8 requantize — the deployed "
-      "numeric regime — where the plain _i8 path rounds raw activations)")
+print(f"block forward: {y_fast.shape}")
+print(f"merged-vs-separate max |delta| = {np.abs(y_fast - y_plain).max():.2e} "
+      "(the merged path shares one per-row requantize; per-tensor scales "
+      "become per-segment output scales)")
 assert np.all(np.isfinite(y_fast))
 
 # --- measured flag selection on a whole LM export ---------------------
@@ -81,11 +73,9 @@ from ternary_spgemm_tpu.models.generate import (  # noqa: E402
 lm_model = BitTransformerLM(cfg)
 lm_params = lm_model.init(jax.random.key(2))
 lm = ExportedTransformerLM.from_params(
-    lm_model, lm_params, TiledBitplane, kernel="PallasTiledBitplane_i8",
-    a8=True, with_transpose=False, auto=True)   # <- flags by measurement
-blk = lm.blocks[0]
-print(f"auto-measured flags: fused_ffn={blk.fused_ffn} "
-      f"fused_qkv={blk.qkv is not None}")
+    lm_model, lm_params, TiledBitplane, a8=True, with_transpose=False,
+    auto=True)   # <- merged QKV or not, by measurement
+print(f"auto-measured: fused_qkv={lm.blocks[0].qkv is not None}")
 toks = jax.random.randint(jax.random.key(3), (1, 4), 0, cfg.vocab)
 assert np.all(np.isfinite(np.asarray(lm(toks))))
 print("OK")

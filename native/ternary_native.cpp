@@ -1,8 +1,8 @@
 // Native host-side core: ternary generation, packing, and TCSC construction.
 //
-// TPU-native framework's analogue of the reference's C++ data-structure layer
+// The framework's analogue of the reference's C++ data-structure layer
 // (cpp_impl/data_structures/*.h and cpp_impl/sparseUtils.h:26-90 in
-// alessiomelone/Ternary-spGEMM). On TPU the *compute* lives in XLA/Pallas;
+// alessiomelone/Ternary-spGEMM). The *compute* lives on the device;
 // what stays on the host is one-time container construction and the
 // benchmark-harness matrix generation — both of which are bottlenecked by
 // Python/numpy on slow benchmark hosts (a 16384x4096 generate + argsort is
@@ -234,16 +234,15 @@ void tcsc_fill(const int8_t* W, int64_t K, int64_t N, int32_t* csp,
 // ---------------------------------------------------------------------------
 // TiledBitplane packer — bit-exact vs formats/bitplane.py::from_dense.
 //
-// Layout: plane (nb, gn, 2*tkb, tile_n) uint8 (pos byte-rows then neg),
-// wsum (nb, gn, 1, tile_n) int32. Dense row r of a B=8*tkb block maps to
+// Layout: plane (nb, gn, 2*tkb, tile_n) uint8 (pos byte-rows then neg).
+// Dense row r of a B=8*tkb block maps to
 // (byte-row t, bit j) per bitplane_rowmap: r<4tkb -> (r/4, r%4), else
 // ((r-4tkb)/4, (r-4tkb)%4+4). Buffers must arrive zeroed (K/N padding
 // contributes nothing).
 // ---------------------------------------------------------------------------
 
 void pack_bitplane(const int8_t* W, int64_t K, int64_t N, int64_t tkb,
-                   int64_t tile_n, int64_t gn, uint8_t* plane,
-                   int32_t* wsum) {
+                   int64_t tile_n, int64_t gn, uint8_t* plane) {
   const int64_t B = 8 * tkb;
   for (int64_t k = 0; k < K; k++) {
     const int64_t sb = k / B, r = k % B;
@@ -261,7 +260,6 @@ void pack_bitplane(const int8_t* W, int64_t K, int64_t N, int64_t tkb,
       } else {
         tile[tkb * tile_n + c] |= bit;
       }
-      wsum[(sb * gn + g) * tile_n + c] += v;
     }
   }
 }
@@ -275,7 +273,7 @@ void pack_bitplane(const int8_t* W, int64_t K, int64_t N, int64_t tkb,
 // slot order (row-ascending within a word column, matching the cumsum slot
 // assignment of the numpy packer); plane rows are (slot, word) flattened,
 // neg slots after the cap_p_max pos slots. Caller pre-fills the plane with
-// the sentinel WORD_ROWS (31) and zeroes wsum.
+// the sentinel WORD_ROWS (31).
 // ---------------------------------------------------------------------------
 
 void ell_deposit_caps(const int8_t* W, int64_t K, int64_t N, int64_t tile_n,
@@ -315,8 +313,8 @@ void ell_deposit_caps(const int8_t* W, int64_t K, int64_t N, int64_t tile_n,
 }
 
 void ell_deposit_fill(const int8_t* W, int64_t K, int64_t N, int64_t tile_n,
-                      int64_t gn, int64_t cap_p, int64_t cap_n, int8_t* plane,
-                      int32_t* wsum) {
+                      int64_t gn, int64_t cap_p, int64_t cap_n,
+                      int8_t* plane) {
   const int64_t SB = 248, WR = 31;
   const int64_t nsb = (K + SB - 1) / SB;
   const int64_t Np = gn * tile_n;
@@ -341,7 +339,6 @@ void ell_deposit_fill(const int8_t* W, int64_t K, int64_t N, int64_t tile_n,
           prow = 8 * cap_p + (int64_t)(sn[w * Np + n]++) * 8 + w;
         }
         plane[(((sb * gn + g) * R) + prow) * tile_n + c] = r;
-        wsum[(sb * gn + g) * tile_n + c] += v;
       }
     }
   }

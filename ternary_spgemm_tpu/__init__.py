@@ -1,11 +1,11 @@
-"""ternary_spgemm_tpu — a TPU-native ternary sparse linear-algebra framework.
+"""ternary_spgemm_tpu — ternary sparse linear algebra on NVIDIA GPUs, in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the CPU
-reference project alessiomelone/Ternary-spGEMM (see SURVEY.md): ternary
-sparse containers, multiplication-free dense x ternary SpMM kernels with a
-fused PReLU epilogue, a calibrated benchmarking/instrumentation harness, and
-— new relative to the reference — multi-chip sharded execution over a JAX
-device mesh.
+Built with the capabilities of the CPU reference project
+alessiomelone/Ternary-spGEMM (see SURVEY.md): ternary sparse containers,
+multiplication-free dense x ternary SpMM kernels with a fused PReLU
+epilogue, a calibrated benchmarking/instrumentation harness, and — new
+relative to the reference — BitNet-style models, KV-cached serving, and
+sharded execution over a JAX device mesh.
 """
 
 __version__ = "0.1.0"

@@ -31,16 +31,20 @@ def main(argv=None) -> int:
     p.add_argument("-correctness", action="store_true")
     p.add_argument("-prelu", action="store_true")
     p.add_argument("--kernels", default=None, help="comma-separated subset")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", default=None,
+                   help="'cpu' runs on the host; otherwise a GPU is required")
     args = p.parse_args(argv)
 
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
 
+    from ternary_spgemm_tpu import platform
     from ternary_spgemm_tpu.bench import BenchConfig, run_config
     from ternary_spgemm_tpu.ops.api import BASELINE_KERNEL_NAME
 
+    platform.configure_compile_cache()
+    platform.measurement_device(args.platform)
     cfg = BenchConfig(
         M=args.M, K=args.K, N=args.N, s=args.s, prelu=args.prelu,
         correctness=args.correctness,
@@ -53,9 +57,11 @@ def main(argv=None) -> int:
         if r.error:
             print(f"{r.name:28s} ERROR {r.error}")
             continue
+        rf = r.roofline_fraction
+        rf = f"{rf:6.1%}" if isinstance(rf, float) else rf
         line = (f"{r.name:28s} {r.seconds * 1e6:10.2f} us   "
                 f"{r.gflops:9.2f} GF/s   OI {r.operational_intensity:7.4f}   "
-                f"roofline {r.roofline_fraction:6.1%}")
+                f"roofline {rf}")
         if r.speedup is not None:
             line += f"   speedup vs {BASELINE_KERNEL_NAME} {r.speedup:7.2f}x"
         if args.correctness:

@@ -1,6 +1,6 @@
 """Benchmarking, calibration, and instrumentation harness.
 
-TPU-native rebuild of the reference's L3 perf harness (``cpp_impl/perf.cpp``,
+Rebuild of the reference's L3 perf harness (``cpp_impl/perf.cpp``,
 ``cpp_impl/main.cpp:251-296``) and instrumentation layer
 (``-DINSTRUMENTATION_RUN``); see SURVEY.md §5 tier mapping.
 """

@@ -6,8 +6,8 @@ bytes (``cpp_impl/comp.h:8-21,48-50``); the driver derives flops/cycle and
 operational intensity = flops / (4*(M*K + M*N + N) + ds_bytes)
 (``main.cpp:264-271``, +4N for the PReLU alpha, ``main.cpp:289``). Here the
 same quantities are computed analytically from the container (the kernels are
-traced/compiled, so there is nothing to "count" at runtime), plus TPU-roofline
-quantities the reference derived offline (``plots/plot_roofline.py``).
+traced/compiled, so there is nothing to "count" at runtime), plus device
+roofline quantities the reference derived offline (``plots/plot_roofline.py``).
 
 Flop convention: the reference counts only useful adds, ``flops ~= M*N*(1 +
 K/s)`` (``readme.md:84-85``); we use the exact per-matrix count
@@ -17,8 +17,10 @@ K/s)`` (``readme.md:84-85``); we use the exact per-matrix count
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from ternary_spgemm_tpu.formats.base import TernaryFormat
+from ternary_spgemm_tpu.platform import NOT_MEASURED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,34 +61,24 @@ def instrument(M: int, fmt: TernaryFormat, *, prelu: bool = False,
         own_bytes=own, _dense_flops=2 * M * N * K)
 
 
-#: Advertised per-chip HBM bandwidth for roofline defaults (bytes/s).
-#: TPU v5e: 819 GB/s; the bench harness measures the achievable number at
-#: runtime (measure_hbm_bandwidth) and uses the measured beta when possible —
-#: the reference hard-codes beta=24 B/cycle (plot_roofline.py:597).
-ADVERTISED_HBM_GBPS = {
-    "TPU v4": 1228.0,
-    "TPU v5 lite": 819.0,
-    "TPU v5e": 819.0,
-    "TPU v5p": 2765.0,
-    "TPU v6 lite": 1640.0,
-    "TPU v6e": 1640.0,
-}
-
-
-def advertised_hbm_bandwidth() -> float:
-    """Bytes/s for the current default device, or a conservative default."""
+def advertised_hbm_bandwidth() -> Optional[float]:
+    """Published peak memory bandwidth (bytes/s) of the first device, from
+    the peak table in :mod:`ternary_spgemm_tpu.platform` (an unknown card
+    raises). None on the CPU: there is no device roofline to share."""
     import jax
-    kind = jax.devices()[0].device_kind
-    for name, gbps in ADVERTISED_HBM_GBPS.items():
-        if name.lower() in kind.lower():
-            return gbps * 1e9
-    return 819.0 * 1e9
+
+    from ternary_spgemm_tpu import platform
+
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return None
+    return platform.peaks(dev.device_kind).hbm_bytes_per_s
 
 
 def measure_hbm_bandwidth(nbytes: int = 1 << 28) -> float:
-    """Measured streaming bandwidth (bytes/s): time a jitted x+1 over an HBM
-    buffer (reads + writes nbytes each). The TPU analogue of calibrating the
-    reference's beta=24 B/cycle roofline parameter."""
+    """Measured streaming bandwidth (bytes/s): time a jitted x+1 over a
+    device buffer (reads + writes nbytes each). The analogue of calibrating
+    the reference's beta=24 B/cycle roofline parameter."""
     import jax
     import jax.numpy as jnp
 
@@ -99,23 +91,27 @@ def measure_hbm_bandwidth(nbytes: int = 1 << 28) -> float:
 
 
 def roofline_fraction(inst: Instrumentation, seconds: float,
-                      bandwidth_bytes_per_s: float) -> float:
+                      bandwidth_bytes_per_s: Optional[float]):
     """Achieved fraction of the bandwidth roofline: for this memory-bound op
     the roofline time is total_input_bytes / beta (+ output write-back).
 
     This is the *reference-formula* fraction (X and Y at 4 B/element plus the
     kernel's own container bytes). See :func:`own_roofline_fraction` for the
-    kernel-honest variant used to track the BASELINE >=70% target."""
+    kernel-honest variant. ``"not measured"`` without a bandwidth (CPU)."""
+    if bandwidth_bytes_per_s is None:
+        return NOT_MEASURED
     ideal = inst.total_input_bytes / bandwidth_bytes_per_s
     return ideal / seconds if seconds > 0 else 0.0
 
 
 def own_roofline_fraction(inst: Instrumentation, seconds: float,
-                          bandwidth_bytes_per_s: float) -> float:
+                          bandwidth_bytes_per_s: Optional[float]):
     """Fraction of the kernel's OWN-bytes roofline: ideal time = the minimum
     HBM traffic the kernel's design implies (its container encoding, its
     actual activation operand width) / measured bandwidth. Always <= the
-    reference-formula fraction for sub-4-byte kernels — the honest number
-    the round-2 verdict asked to track per round (VERDICT.md weak #1/#4)."""
+    reference-formula fraction for sub-4-byte kernels. ``"not measured"``
+    without a bandwidth (CPU)."""
+    if bandwidth_bytes_per_s is None:
+        return NOT_MEASURED
     ideal = inst.own_bytes / bandwidth_bytes_per_s
     return ideal / seconds if seconds > 0 else 0.0

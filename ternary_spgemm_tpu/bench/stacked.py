@@ -1,20 +1,11 @@
-"""Stacked-regime marginal cost: the deployment-regime headline metric.
+"""Stacked-regime marginal cost: the per-layer cost inside a deep program.
 
-The isolated north-star record pays a measured ~1.3 us per-dispatch floor
-that a bare XLA add also pays (docs/perf.md §14, kernel_v4_study.json) — it
-is the measurement loop's serialized dispatch turnaround, not kernel time.
-The deployed regime is an L-layer jitted program where ONE dispatch carries
-many layers, so the honest per-layer number there is the MARGINAL cost of
-one more layer in the chain: ``(t(L2) - t(L1)) / (L2 - L1)`` cancels every
-fixed cost exactly (chain study: ``tools/chain_bench.py``,
-``bench_artifacts/chain_amortized.json``; the deep chained-fullwidth
-marginal measured 2.65 us = 0.97 of the kernel-honest HBM-bytes bound).
-
-This module is the compact driver-facing version: two depths, chained
-layers with full-width tiles (the measured in-stack rule — the isolated
-2-step N-split inverts in a stack, docs/perf.md §16), emitted by
-``bench.py`` as ``stacked_*`` fields in the ONE headline JSON line so the
-scoreboard artifact carries both regimes itself (round-4 VERDICT weak #1).
+An isolated kernel call pays a per-dispatch floor that a bare XLA add also
+pays. The deployed regime is an L-layer jitted program where ONE dispatch
+carries many layers, so the honest per-layer number there is the MARGINAL
+cost of one more layer in the chain: ``(t(L2) - t(L1)) / (L2 - L1)`` cancels
+every fixed cost exactly. ``bench.py`` emits it as the ``stacked_*`` fields
+of its one JSON line.
 
 Reference counterpart: the reference has no dispatch floor to amortize —
 its calibrated cycle timers (``cpp_impl/perf.cpp:45-68``) time a CPU loop
@@ -29,11 +20,13 @@ from typing import Optional, Sequence
 
 def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
                              s: int = 4, *,
-                             kernel: str = "PallasTiledBitplane_i8",
+                             kernel: Optional[str] = None,
                              depths: Sequence[int] = (8, 16),
                              repeats: int = 3,
                              bandwidth: Optional[float] = None) -> dict:
-    """Measure the chained full-width stack marginal at the given config.
+    """Measure the chained stack marginal at the given config. ``kernel``
+    defaults to the platform's choice for int8 activations over
+    ``TiledBitplane`` at ``M`` rows (:mod:`ternary_spgemm_tpu.platform`).
 
     Returns ``{stacked_marginal_seconds, stacked_spread, stacked_gflops,
     stacked_roofline_fraction, ...}`` where the roofline fraction divides
@@ -42,7 +35,7 @@ def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
     import jax
     import jax.numpy as jnp
 
-    from ternary_spgemm_tpu import native
+    from ternary_spgemm_tpu import native, platform
     from ternary_spgemm_tpu.bench.instrument import (
         advertised_hbm_bandwidth, instrument, own_roofline_fraction)
     from ternary_spgemm_tpu.bench.timing import time_device_loop
@@ -50,10 +43,6 @@ def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
         TiledBitplane, generate_bias, generate_ternary, generate_x)
     from ternary_spgemm_tpu.ops import all_kernels
 
-    spec = all_kernels()[kernel]
-    if spec.format_cls is not TiledBitplane:
-        raise ValueError("stacked protocol is defined for the TiledBitplane "
-                         f"flagship family, got {kernel}")
     gen_w = native.gen_ternary if native.native_available() else \
         generate_ternary
     L_max = max(depths)
@@ -66,18 +55,26 @@ def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
             fmt_host = f
         fmts.append(jax.tree_util.tree_map(jnp.asarray, f))
         biases.append(jnp.asarray(generate_bias(N)))
-    X = jnp.asarray(generate_x(M, K, seed=1))
+    if kernel is None:
+        kernel = platform.bitplane_a8_kernel(fmt_host, M)
+    spec = all_kernels()[kernel]
+    if spec.format_cls is not TiledBitplane:
+        raise ValueError("stacked protocol is defined for the TiledBitplane "
+                         f"serving format, got {kernel}")
+    # the kernel's exact activation domain: |x| <= 127 for the _x8 kernels
+    lim = float(spec.x_absmax or 512)
+    X = jnp.clip(jnp.asarray(generate_x(M, K, seed=1)), -lim, lim)
 
     def make_chain(L):
         def fn(x, fmts_l, bs_l):
             cur = x
             y = None
             for i in range(L):
-                # full-width tiles: the measured in-stack rule (perf.md §16)
-                y = spec.fn(cur, fmts_l[i], bs_l[i], tns=N)
-                # integer-valued clip keeps the i8 split exact; the slice +
-                # clip is the glue a real serving stack pays between layers
-                cur = jnp.clip(y[:, :K], -512.0, 512.0)
+                y = spec.fn(cur, fmts_l[i], bs_l[i])
+                # the clip keeps the next layer's input in the kernel's
+                # exact domain; slice + clip is the glue a real serving
+                # stack pays between layers
+                cur = jnp.clip(y[:, :K], -lim, lim)
             return y
         return fn
 
@@ -93,15 +90,15 @@ def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
               + rows[L1].seconds * rows[L1].seconds_spread) / max(
         rows[L2].seconds - rows[L1].seconds, 1e-30)
     inst = instrument(M, fmt_host, x_bytes=spec.x_bytes)
-    beta = bandwidth or advertised_hbm_bandwidth()
+    beta = bandwidth or advertised_hbm_bandwidth()   # None on the CPU
     flops = M * N * (1 + K / s)
     return {
         "stacked_marginal_seconds": marginal,
         "stacked_spread": round(float(spread), 4),
         "stacked_depths": [int(L1), int(L2)],
         "stacked_gflops": round(flops / marginal / 1e9, 3),
-        "stacked_roofline_fraction": round(
-            own_roofline_fraction(inst, marginal, beta), 4),
+        "stacked_roofline_fraction": own_roofline_fraction(
+            inst, marginal, beta),
         "stacked_kernel": kernel,
         "stacked_rows": {str(L): {"seconds": rows[L].seconds,
                                   "seconds_spread": rows[L].seconds_spread,

@@ -248,8 +248,7 @@ def save_lm_bundle(path: str, lm) -> None:
     arrays: dict = {"embed": emb, "norm_out": np.asarray(lm.norm_out)}
     blocks_hdr = []
     for i, blk in enumerate(lm.blocks):
-        bh = {"linears": {}, "fused_ffn": bool(blk.fused_ffn),
-              "kernel": blk.kernel}
+        bh = {"linears": {}, "kernel": blk.kernel}
         for name, lin in blk.linears.items():
             bh["linears"][name] = _linear_record(lin, f"b{i}.{name}", arrays)
         if blk.qkv is not None:
@@ -308,7 +307,7 @@ def load_lm_bundle(path: str):
                    "bias": jnp.asarray(data[f"b{i}.qkv.bias"])}
         blocks.append(ExportedTransformerBlock(
             cfg, linears, data[f"b{i}.norm_attn"], data[f"b{i}.norm_ffn"],
-            moe, fused_ffn=bh.get("fused_ffn", False), qkv=qkv,
+            moe, qkv=qkv,
             kernel=bh.get("kernel")))
     embed = data["embed"]
     head_dtype = None

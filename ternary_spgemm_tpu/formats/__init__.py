@@ -1,4 +1,4 @@
-"""Ternary sparse container formats (logical + TPU-physical layouts)."""
+"""Ternary sparse container formats (logical and device-physical layouts)."""
 
 from ternary_spgemm_tpu.formats.base import TernaryFormat, all_formats, register_format
 from ternary_spgemm_tpu.formats.bitplane import (TiledBitplane,

@@ -1,6 +1,6 @@
 """Abstract interface for ternary sparse containers.
 
-TPU-native analogue of the reference's ``DataStructureInterface``
+The analogue of the reference's ``DataStructureInterface``
 (``cpp_impl/data_structures/DataStructureInterface.hpp:4-14``): every format
 can be built from a dense ternary matrix and converted back
 (``init`` / ``getVectorRepresentation`` round-trip), and reports its byte

@@ -1,40 +1,22 @@
-"""Tile-contiguous split-sign bitplane container — 2 bits/weight, cheapest decode.
+"""Tile-contiguous split-sign bitplane container — 2 bits/weight.
 
-The round-2 flagship weight layout. The reference's roadmap codec packs 5
-ternary values per byte (``readme.md:108-111``); round 1 shipped that (and a
-2-bit code plane) but the in-kernel decode cost ~7 int32-lane VPU ops per
-weight (base-3 digit chains / per-field shift-mask-map), so the packed
-kernels lost to the 8-bit dense plane despite moving 4-5x fewer bytes
-(VERDICT.md weak #2). This layout gets the decode down to ~2 VPU ops per
-weight by making the *hardware* do the unpacking:
+The serving weight layout. The reference's roadmap codec packs ternary
+values into a few bits each (``readme.md:108-111``); this layout keeps two
+bits per weight and makes the decode a shift and a mask:
 
 * Weights are stored as two **bitplanes** per K-block: byte-row ``t`` holds,
   in bit ``j``, the pos (resp. neg) flag of a dense row; 8 dense rows per
   byte, 2 bits per weight total across both planes.
-* In-kernel, a byte-row word tile widens to int32 and two **magic-multiply
-  bit deposits** spread the low and high nibbles into 0/1 *bytes* of an int32
-  word: ``((x & 0xF) * 0x00204081) & 0x01010101`` places bit j of x in byte j
-  (the shifted copies never overlap, so no carries). One
-  ``pltpu.bitcast(int32 -> int8)`` then reinterprets each word as 4 int8
-  rows — byte b of the word at sublane t lands at int8 row 4t+b
-  (empirically probed on TPU v5e; the interpret-mode fallback reproduces the
-  same mapping via ``lax.bitcast_convert_type``).
-* Signs merge **in-register**: the neg plane's 0/1 bytes scale by 0xFF
-  (int8 -1; no cross-byte carry) and OR into the pos plane (pos/neg disjoint
-  by construction), so the MXU consumes one ternary int8 plane in ONE
-  stacked dot per K-step.
+* Bit ``j`` of byte-row ``t`` is dense row ``4t + j`` of the block for
+  ``j < 4`` and ``4*tkb + 4t + (j - 4)`` for ``j >= 4`` (:func:`bitplane_rowmap`;
+  the packer uses it and ``to_dense`` inverts it). So the low nibbles of a
+  ``(tkb, N)`` slab expand, in order, to the block's first ``4*tkb`` rows,
+  and the high nibbles to the rest.
+* Each ``(K-block, N-tile)`` plane is contiguous in memory: one block of a
+  kernel reads one contiguous slab.
 
-The dense-row-to-(byte-row, bit) mapping this implies is computed by
-:func:`bitplane_rowmap` and used by the packer; ``to_dense`` inverts it.
-
-Per-(block, tile) column sums ship as a third plane so the int8-split
-activation trick (x = 8a + r - 512) needs no in-kernel weight reduction:
-the kernel accumulates ``wsum`` tiles (one (1, TN) int32 add per K-step)
-and the epilogue applies ``- 512 * wsum``.
-
-Measured (TPU v5e, M=32, K=N=11008, s=4): 100.2 us vs 188.6 us for the
-8-bit tiled dense plane — the packed family beating dense for the first
-time; at the north-star config 5.4 us vs 8.3.
+The device decoder (``ops/tiled_kernels.decode_bitplane``) and the fused
+Triton kernel (``ops/triton_bitplane.py``) rely on the same mapping.
 """
 
 from __future__ import annotations
@@ -52,8 +34,6 @@ def bitplane_rowmap(tkb: int):
       r <  4*tkb: byte-row t = r//4, bit j = r%4     (low-nibble deposit)
       r >= 4*tkb: t = (r-4*tkb)//4, j = (r-4*tkb)%4+4 (high-nibble deposit)
 
-    (bitcast byte order probed on hardware: word sublane t byte b -> int8
-    row 4t+b, little-endian.)
     """
     rt = np.empty(8 * tkb, np.int64)
     rj = np.empty(8 * tkb, np.int64)
@@ -69,42 +49,35 @@ def bitplane_rowmap(tkb: int):
 
 @register_format
 class TiledBitplane(TernaryFormat):
-    """Tile-contiguous pos/neg bitplanes + per-tile column sums."""
+    """Tile-contiguous pos/neg bitplanes."""
 
-    ARRAY_FIELDS = ("plane", "wsum")
+    ARRAY_FIELDS = ("plane",)
 
     plane: np.ndarray   # (nb, gn, 2*tkb, tile_n) uint8: pos rows then neg rows
-    wsum: np.ndarray    # (nb, gn, 1, tile_n) int32 per-(block, tile) col sums
     K: int
     N: int
     tkb: int            # byte-rows per block; block covers 8*tkb dense rows
     tile_n: int
 
     @classmethod
-    def from_dense(cls, W: np.ndarray, tkb: int = None,
-                   tile_n: int = 4096) -> "TiledBitplane":
+    def from_dense(cls, W: np.ndarray, tkb: int = 32,
+                   tile_n: int = 128) -> "TiledBitplane":
+        # Defaults: K-blocks of 8*32 = 256 dense rows and N-tiles of 128
+        # columns. They bound the padding at 255 rows and 127 columns (the
+        # BitNet-3B widths 3200/8640/9600 pad by at most 4%), and they are
+        # the smallest blocks the fused Triton kernel takes: an int8 dot
+        # wants a depth of 32, and its column block is 128 wide.
         W = _as_int8_dense(W)
         K, N = W.shape
-        if tkb is None:
-            # Default K-block: 8*tkb = 1024 dense rows per grid step — the
-            # int8 MXU sustains 159 T MACs/s at K-chunks >= 1024 vs 147 at
-            # 256 (round-3 measurement; 81.5 vs 103.3 us at M=32 K=N=11008
-            # end-to-end). Smaller K shrinks the block so K never pads below
-            # one block; 2*tkb >= 32 keeps the plane's sublane dim a legal
-            # int8 tile on real hardware.
-            tkb = min(128, max(16, round_up(K, 128) // 8))
         B = 8 * tkb
         tile_n = min(tile_n, round_up(N, 128))
         if K * N >= (1 << 20):
-            # the native packer is ~50x the numpy path on this class of
-            # host (CLAUDE.md); bit-exact equivalence property-tested in
-            # tests/test_native.py
+            # the native packer is much faster than the numpy path;
+            # bit-exact equivalence property-tested in tests/test_native.py
             from ternary_spgemm_tpu import native
-            packed = native.pack_bitplane(W, tkb, tile_n)
-            if packed is not None:
-                plane, wsum = packed
-                return cls(plane=plane, wsum=wsum, K=K, N=N, tkb=tkb,
-                           tile_n=tile_n)
+            plane = native.pack_bitplane(W, tkb, tile_n)
+            if plane is not None:
+                return cls(plane=plane, K=K, N=N, tkb=tkb, tile_n=tile_n)
         Kp, Np = round_up(K, B), round_up(N, tile_n)
         Wp = np.zeros((Kp, Np), np.int8)
         Wp[:K, :N] = W
@@ -124,10 +97,7 @@ class TiledBitplane(TernaryFormat):
                          << shifts[None, :, None, None]).sum(axis=1)
         plane = np.ascontiguousarray(
             np.concatenate([pos, neg], axis=1).transpose(0, 2, 1, 3))
-        wsum = np.ascontiguousarray(
-            Wb.astype(np.int32).sum(axis=1)[:, :, None, :].transpose(0, 2, 1, 3)
-        ).reshape(nb, gn, 1, tile_n)
-        return cls(plane=plane, wsum=wsum, K=K, N=N, tkb=tkb, tile_n=tile_n)
+        return cls(plane=plane, K=K, N=N, tkb=tkb, tile_n=tile_n)
 
     @property
     def num_blocks(self) -> int:
@@ -149,7 +119,7 @@ class TiledBitplane(TernaryFormat):
         return W[:self.K, :self.N]
 
     def size_bytes(self) -> int:
-        return int(self.plane.size + 4 * self.wsum.size)
+        return int(self.plane.size)
 
     @property
     def shape(self):
@@ -160,30 +130,22 @@ class TiledBitplane(TernaryFormat):
 class TiledNibblePair(TernaryFormat):
     """Tile-contiguous signed-nibble words — 4 bits/weight, half the decode ops.
 
-    The one untried cell of the round-3 decode design space (VERDICT.md
-    round-3 next-#9): the 2-bit :class:`TiledBitplane` is *decode-bound* at
-    some serving shapes (``decode_roofline.json``: decode_ideal > byte_ideal
-    at 32x4096^2), so trade 2x the plane bytes for ~half the VPU decode work.
-    Each int32 word holds 8 weights as 4-bit two's-complement nibbles
-    (+1 -> 0x1, -1 -> 0xF, 0 -> 0x0); in-kernel decode is one mask (low
-    nibbles), one shift+mask (high nibbles) and a 3-op sign-extend per group
-    — ~1.1 int32-lane VPU ops/weight vs ~2 for the bitplane deposit+merge —
-    then the same ``pltpu.bitcast(int32 -> int8)`` row expansion feeds the
-    MXU dots. Same reference lineage as TiledBitplane (the ``readme.md:
-    108-111`` roadmap codec, done TPU-first); same wsum companion for the
-    int8-split epilogue.
+    Trades 2x the plane bytes of :class:`TiledBitplane` for a cheaper
+    decode. Each int32 word holds 8 weights as 4-bit two's-complement
+    nibbles (+1 -> 0x1, -1 -> 0xF, 0 -> 0x0); decode is one mask (low
+    nibbles), one shift+mask (high nibbles) and a sign-extend. Same
+    reference lineage as TiledBitplane (the ``readme.md:108-111`` roadmap
+    codec).
 
     Dense-row mapping (mirrors :func:`bitplane_rowmap` with nibbles for
     bits): decoded row r of a B = 8*tkb block comes from word row ``r // 4``
     byte ``r % 4`` — LOW nibble for r < 4*tkb, HIGH nibble (shifted) for
-    r >= 4*tkb, so the kernel dots X[:, :H] against the low group and
-    X[:, H:] against the high group exactly like the bitplane halves.
+    r >= 4*tkb, like the bitplane halves.
     """
 
-    ARRAY_FIELDS = ("words", "wsum")
+    ARRAY_FIELDS = ("words",)
 
     words: np.ndarray   # (nb, gn, tkb, tile_n) int32 nibble-pair words
-    wsum: np.ndarray    # (nb, gn, 1, tile_n) int32 per-(block, tile) col sums
     K: int
     N: int
     tkb: int            # word-rows per block; block covers 8*tkb dense rows
@@ -207,15 +169,11 @@ class TiledNibblePair(TernaryFormat):
         # 4-bit two's complement: -1 (0xFF as uint8) & 0xF = 0xF
         codes = Wb.view(np.uint8) & 0xF
         nib = codes[:, :H] | (codes[:, H:] << 4)        # (nb, H, gn, tn)
-        # word row t, byte b <- nibble row 4t+b (little-endian, matching the
-        # device bitcast byte order probed in _words_to_byte_rows)
+        # word row t, byte b <- nibble row 4t+b (little-endian)
         words = np.ascontiguousarray(
             nib.reshape(nb, tkb, 4, gn, tile_n).transpose(0, 3, 1, 4, 2))
         words = words.view(np.int32)[..., 0]            # (nb, gn, tkb, tn)
-        wsum = np.ascontiguousarray(
-            Wb.astype(np.int32).sum(axis=1)[:, :, None, :].transpose(0, 2, 1, 3)
-        ).reshape(nb, gn, 1, tile_n)
-        return cls(words=words, wsum=wsum, K=K, N=N, tkb=tkb, tile_n=tile_n)
+        return cls(words=words, K=K, N=N, tkb=tkb, tile_n=tile_n)
 
     @property
     def num_blocks(self) -> int:
@@ -234,7 +192,7 @@ class TiledNibblePair(TernaryFormat):
         return W[:self.K, :self.N]
 
     def size_bytes(self) -> int:
-        return int(4 * self.words.size + 4 * self.wsum.size)
+        return int(4 * self.words.size)
 
     @property
     def shape(self):

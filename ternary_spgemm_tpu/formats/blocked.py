@@ -15,9 +15,9 @@ Re-designs of the reference's cache-blocking formats:
   with ``UF/2`` negatives (``:78-148``, driver uses UF=12). Here that is one
   class with a ``group`` parameter (group=1 == base).
 
-On the CPU the blocking exists to keep the active X-slice in L1/L2; on TPU the
-same role is played by K-tiled VMEM staging inside the Pallas kernels, so
-these containers are primarily *logical* formats (capability parity + layout
+On the CPU the blocking exists to keep the active X-slice in L1/L2; on an
+accelerator that role belongs to a kernel's own tiling, so these containers
+are primarily *logical* formats (capability parity + layout
 experiments). Each carries flattened companion views (per-nonzero column ids,
 signs, and per-block stream offsets) that the XLA kernels consume with
 trace-time block loops + ``segment_sum``.

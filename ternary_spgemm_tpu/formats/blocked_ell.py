@@ -1,32 +1,24 @@
-"""Blocked-ELL split-sign container — the TPU *shuffle-network* gather format.
+"""Blocked-ELL split-sign container — the block-local gather format.
 
-This is the format the reference never had but would have wanted on TPU. The
-reference's ``VectorTCSC`` (``cpp_impl/data_structures/VectorTCSC.h:5-73``)
+The reference's ``VectorTCSC`` (``cpp_impl/data_structures/VectorTCSC.h:5-73``)
 pads per-4-column capacities so NEON can gather branch-free; its indices are
-*global* K positions, which on a CPU is fine because the gather goes through
-the cache hierarchy. A TPU VPU has no gather through memory — what it has is
-an in-register lane shuffle: a vector whose lane ``i`` reads lane ``idx[i]``
-of another vector. That shuffle reaches exactly one 128-lane register.
-
-So the TPU-native layout blocks K into ``block_k``-wide chunks (default 128 =
-one lane register when an X K-slice is laid out along lanes) and stores per
-(K-block, column) the *local* row offsets within the block:
+*global* K positions. This layout blocks K into ``block_k``-wide chunks
+(default 128) and stores per (K-block, column) the *local* row offsets
+within the block, so a gather only ever reaches one small K-slice of X:
 
 * ``idx_pos`` / ``idx_neg`` — ``(nb, CAP, N_pad)`` int8, local offsets in
   ``[0, block_k)``, padding sentinel ``-1``;
 * ``CAP`` is the max per-(block, column) count per sign over the whole matrix,
-  rounded up to ``cap_align`` sublanes (static shape — mandatory for XLA);
+  rounded up to ``cap_align`` (static shape — mandatory for XLA);
 * ``tile_cap_pos/neg`` — ``(nb, num_tiles)`` int32 honest per-(block, N-tile)
   capacities for byte accounting and tighter loop bounds.
 
-The Pallas kernel (``ops/pallas_kernels.py``) then runs, per grid step
-``(m_tile, n_tile, k_block)``: one 128-lane X slice, two
-``jnp.take_along_axis`` lane-gathers (pos/neg planes), masked sums, and a
-float32 accumulator — the reference's gather loop (``comp.h:44-61``)
-vectorized over 128 output columns at once with zero branches.
+The XLA kernel (``ops/xla_kernels.py::BlockedEllTCSC``) runs the
+reference's gather loop (``comp.h:44-61``) as masked gathers over those
+planes, vectorized over all output columns with zero branches.
 
 Local offsets fit in one byte (``block_k <= 128``), and the planes are
-physically int8, so the asymptotic HBM cost is 8 bits/nonzero = ``8/s`` bits
+physically int8, so the asymptotic memory cost is 8 bits/nonzero = ``8/s`` bits
 per dense weight position — exactly what ``size_bytes`` accounts (per-tile
 honest capacities, not the global CAP).
 """

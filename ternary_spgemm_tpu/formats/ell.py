@@ -1,26 +1,26 @@
-"""Rectangular (ELL-style) split-sign container — the TPU gather format.
+"""Rectangular (ELL-style) split-sign container — the static-shape gather format.
 
 This is the reference's ``VectorTCSC``
-(``cpp_impl/data_structures/VectorTCSC.h:5-73``) *done right for TPU*. The
+(``cpp_impl/data_structures/VectorTCSC.h:5-73``) with static shapes. The
 reference pads every group of 4 columns to a common per-sign capacity so its
 NEON kernels are branch-free — but its capacity scan loops over all
 *remaining* columns (``VectorTCSC.h:21``), massively over-padding, and it
 resolves the ``-1`` padding sentinel by writing to ``X_row_m[-1]``
 (``comp.h:1078,1160``), which is UB for the first row. Here:
 
-* columns are tiled in groups of ``tile_n`` (default 128 — one TPU lane per
-  column), and the padded capacity is the max nonzero count *within the
-  tile*, rounded up to a multiple of ``cap_align`` (default 8 sublanes);
+* columns are tiled in groups of ``tile_n`` (default 128), and the padded
+  capacity is the max nonzero count *within the tile*, rounded up to a
+  multiple of ``cap_align`` (default 8);
 * the index arrays are rectangular ``(CAP, N_pad)`` int32 with padding
   sentinel ``K`` — kernels append one zero row to X (or use fill-gather), so
   padded slots contribute exactly 0 with no UB;
 * per-tile capacities are kept (``tile_cap_pos/neg``) for honest byte
   accounting and per-tile loop bounds, so the global rectangle costs no extra
-  HBM traffic in kernels that bound their slot loop by the tile capacity.
+  memory traffic in kernels that bound their slot loop by the tile capacity.
 
 Rectangular, statically-shaped index planes are what make the gather
-formulation expressible on TPU at all: XLA and Pallas require static shapes,
-and the (slot, lane) layout puts one column per vector lane.
+formulation expressible under jit at all: XLA requires static shapes, and
+the (slot, column) layout keeps the columns on the minor axis.
 """
 
 from __future__ import annotations

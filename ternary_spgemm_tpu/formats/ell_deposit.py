@@ -1,45 +1,32 @@
-"""Bit-deposit ELL container — index-stream storage, MXU-dense compute.
+"""Bit-deposit ELL container — index-stream storage, dense compute.
 
-Round-2 answer to the true-sparse gap (VERDICT.md weak #1 / next-round #4):
-the gather kernels (``PallasEllGather``/``PallasTiledEllGather``) are
-lane-shuffle bound at ~285 us on the north-star config because every ELL slot
-costs a 128-lane ``take_along_axis`` per M-tile. This layout keeps the
-*storage* sparse (one int8 local offset per nonzero, padded to per-tile
-capacity — bytes scale with 1/s like the reference's index formats,
-``TCSC.h:5-50``) but moves the *compute* to the MXU: the kernel
-(``ops/pallas_kernels.py::PallasEllDeposit_i8``) re-materializes each
-K-superblock's weight tile in VMEM by **depositing each offset as a bit**
-with a lane-wise variable shift (2 VPU ops per nonzero slot), then expands
-the bit words through the same magic-multiply + hardware-bitcast decode as
-:class:`~ternary_spgemm_tpu.formats.bitplane.TiledBitplane` and feeds ONE
-stacked int8-split MXU dot per superblock.
+This layout keeps the *storage* sparse (one int8 local offset per nonzero,
+padded to per-tile capacity — bytes scale with 1/s like the reference's
+index formats, ``TCSC.h:5-50``) while the compute can stay dense: each
+K-superblock's weight tile is rebuilt by depositing each offset as one bit of
+a 32-bit word, and the words expand to rows of the ternary tile.
 
 Layout:
 
-* A **superblock** covers ``8 * 31 = 248`` dense rows: 8 int32 deposit words
-  (one per VPU sublane), 31 data bits each. Bit 31 of every word is the
-  **sentinel** — padding slots store offset 31, whose decoded weight row
-  faces an ``(a, r) = (0, 0)`` activation row in the int8-split domain
-  (``8a + r = 0``), so phantom weights contribute exactly zero with no mask
-  (the sound rendering of VectorTCSC's ``X[-1] = 0`` trick, ``comp.h:1078``).
+* A **superblock** covers ``8 * 31 = 248`` dense rows: 8 int32 deposit words,
+  31 data bits each. Bit 31 of every word is the **sentinel**: padding slots
+  store offset 31, which decodes to no row.
 * ``plane[sb, gn, 8*s + w, n]`` = local dense row (0..30) of the ``s``-th
-  nonzero of word ``w``, column ``n`` — slot-major rows so one slot of all
-  8 words is a single aligned 8-sublane slab load.
-* ``cap_pos/cap_neg[sb, gn]`` = exact per-(superblock, N-tile) slot counts,
-  scalar-prefetched to SMEM for dynamic compute bounds; the *storage* (and
-  therefore DMA traffic) pads to the global max — ``size_bytes`` reports the
-  physical arrays, which is exactly what the kernel moves.
-* ``wsum[sb, gn, 1, TN]`` = per-column sums of the real weights (phantoms
-  excluded), consumed by the int8-split epilogue's ``- 512 * wsum``.
+  nonzero of word ``w``, column ``n`` — slot-major rows, so one slot of all
+  8 words is one contiguous slab.
+* ``cap_pos/cap_neg[sb, gn]`` = exact per-(superblock, N-tile) slot counts;
+  the *storage* pads to the global max — ``size_bytes`` reports the physical
+  arrays.
 
-The mapping from (word, bit) to decoded MXU row is fixed by the decode
-chain; :func:`deposit_rowmap` derives it by simulating that chain in numpy,
-and the kernel wrapper restructures the activation rows to match.
+Word ``w``'s offset ``r`` is local row ``w*31 + r`` of its superblock; the
+device decoder (``ops/tiled_kernels.decode_ell_deposit``) and ``to_dense``
+both use that mapping. :func:`deposit_rowmap` and
+:func:`activation_row_order` give the permutation a byte-row decode of the
+words produces, for kernels that decode that way.
 
 Reference analogue: the ELL/``VectorTCSC`` family (``VectorTCSC.h:5-73``)
 with capacities scanned per tile instead of over all remaining columns
-(fixing ``VectorTCSC.h:21``), landed on TPU as deposit-then-MXU instead of
-NEON gathers (``comp.h:1068-1149``).
+(fixing ``VectorTCSC.h:21``).
 """
 
 from __future__ import annotations
@@ -53,7 +40,7 @@ from ternary_spgemm_tpu.utils import cdiv, round_up
 
 #: Dense rows addressed by one deposit word (bit 31 = sentinel).
 WORD_ROWS = 31
-#: Deposit words (VPU sublanes) per superblock.
+#: Deposit words per superblock.
 WORDS = 8
 #: Dense rows per superblock.
 SB_ROWS = WORDS * WORD_ROWS
@@ -61,7 +48,7 @@ SB_ROWS = WORDS * WORD_ROWS
 
 @functools.lru_cache(maxsize=None)
 def deposit_rowmap() -> np.ndarray:
-    """(8, 32) table: decoded MXU row of bit ``j`` of deposit word ``w``.
+    """(8, 32) table: decoded row of bit ``j`` of deposit word ``w``.
 
     Derived by simulating the kernel's decode chain (int32 word -> byte rows
     via little-endian bitcast -> nibble magic-multiply deposit -> byte rows)
@@ -90,7 +77,7 @@ def deposit_rowmap() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def activation_row_order() -> np.ndarray:
-    """(256,) gather indices g: decoded MXU row ``p`` reads restructured
+    """(256,) gather indices g: decoded row ``p`` reads restructured
     activation column ``g[p]`` of a (M, 249) superblock slice — ``w*31 + j``
     for data bits, 248 (the appended zero column) for the 8 sentinel rows."""
     dec = deposit_rowmap()
@@ -103,14 +90,13 @@ def activation_row_order() -> np.ndarray:
 
 @register_format
 class TiledEllDeposit(TernaryFormat):
-    """Bit-deposit ELL: int8 offset slots, per-tile caps, MXU-ready."""
+    """Bit-deposit ELL: int8 offset slots, per-tile caps."""
 
-    ARRAY_FIELDS = ("plane", "cap_pos", "cap_neg", "wsum")
+    ARRAY_FIELDS = ("plane", "cap_pos", "cap_neg")
 
     plane: np.ndarray     # (nsb, gn, 8*CAPS, TN) int8 offsets; sentinel=31
     cap_pos: np.ndarray   # (nsb, gn) int32 exact slot counts
     cap_neg: np.ndarray   # (nsb, gn) int32
-    wsum: np.ndarray      # (nsb, gn, 1, TN) int32 real-weight column sums
     K: int
     N: int
     tile_n: int
@@ -118,10 +104,8 @@ class TiledEllDeposit(TernaryFormat):
 
     @classmethod
     def from_dense(cls, W: np.ndarray, tile_n: int = 4096) -> "TiledEllDeposit":
-        # tile_n=4096 measured best on v5e (17.9 us vs 27.1 at tile_n=512,
-        # north-star; 199.6 vs 424.5 us at K=N=11008 s=16): caps are set by
-        # the global max anyway, so wide tiles cost no extra padding and
-        # cut the grid depth 8x.
+        # caps are set by the global max anyway, so wide tiles cost no
+        # extra padding
         W = _as_int8_dense(W)
         K, N = W.shape
         nsb = cdiv(K, SB_ROWS)
@@ -136,8 +120,8 @@ class TiledEllDeposit(TernaryFormat):
             from ternary_spgemm_tpu import native
             packed = native.ell_deposit_arrays(W, tile_n)
             if packed is not None:
-                plane, cp, cm, wsum = packed
-                return cls(plane=plane, cap_pos=cp, cap_neg=cm, wsum=wsum,
+                plane, cp, cm = packed
+                return cls(plane=plane, cap_pos=cp, cap_neg=cm,
                            K=K, N=N, tile_n=tile_n,
                            cap_p_max=max(int(cp.max()), 1))
 
@@ -160,13 +144,7 @@ class TiledEllDeposit(TernaryFormat):
         both = np.concatenate([ip, im], axis=1)                   # (nsb, R, Np)
         plane = np.ascontiguousarray(
             both.reshape(nsb, both.shape[1], gn, tile_n).transpose(0, 2, 1, 3))
-        Wp = np.zeros((nsb * SB_ROWS, Np), np.int8)
-        Wp[:K, :N] = W
-        wsum = np.ascontiguousarray(
-            Wp.reshape(nsb, SB_ROWS, gn, tile_n).astype(np.int32)
-            .sum(axis=1)[:, :, None, :].transpose(0, 2, 1, 3)
-        ).reshape(nsb, gn, 1, tile_n)
-        return cls(plane=plane, cap_pos=cp, cap_neg=cm, wsum=wsum,
+        return cls(plane=plane, cap_pos=cp, cap_neg=cm,
                    K=K, N=N, tile_n=tile_n, cap_p_max=cap_p_max)
 
     @property
@@ -192,11 +170,9 @@ class TiledEllDeposit(TernaryFormat):
         return W[:self.K, :self.N]
 
     def size_bytes(self) -> int:
-        # Physical truth: the global-cap padded plane is what the kernel
-        # DMAs, plus the SMEM cap tables and the wsum plane.
+        # Physical truth: the global-cap padded plane, plus the cap tables.
         return int(self.plane.size
-                   + 4 * (self.cap_pos.size + self.cap_neg.size
-                          + self.wsum.size))
+                   + 4 * (self.cap_pos.size + self.cap_neg.size))
 
     @property
     def shape(self):

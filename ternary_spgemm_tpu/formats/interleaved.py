@@ -7,8 +7,8 @@ Re-design of the reference's ``InterleavedTCSC``
 groups of 4 positive then 4 negative indices (while both signs have >= 4
 left), segment 2 the leftover positives, segment 3 the leftover negatives
 (``InterleavedTCSC.h:44-72``). The layout removes per-nonzero sign branching
-— on the CPU that killed branch prediction; on TPU the analogous win is a
-branch-free signed stream, which the companion ``signs`` array makes explicit
+— on the CPU that killed branch prediction; under jit the analogous win is
+a branch-free signed stream, which the companion ``signs`` array makes explicit
 for the vectorized segment-sum kernel.
 """
 

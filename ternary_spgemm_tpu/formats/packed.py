@@ -1,12 +1,12 @@
-"""Packed ternary containers — the MXU-path physical layouts.
+"""Packed ternary containers — the dense-product physical layouts.
 
 The reference's optimization roadmap calls for compressing the ternary values
 ("normal CSC with compressed values vector — 1s and -1s, 8 bits for 5
-values", ``readme.md:108-111``). On TPU the winning strategy inverts the
-reference's: the MXU multiplies for free, so at the benchmarked densities
-(1/2 .. 1/16) the fastest kernel is a *dense* matmul over compressed ternary
-weights, decoded on the VPU inside the Pallas kernel right before hitting the
-MXU. HBM traffic per weight value drops to 2 bits (:class:`PackedTernary2Bit`)
+values", ``readme.md:108-111``). On an accelerator with matrix units the
+winning strategy inverts the reference's: the multiplies are nearly free, so
+at the benchmarked densities (1/2 .. 1/16) the fastest kernel is a *dense*
+matmul over compressed ternary weights, decoded right before the product.
+Memory traffic per weight value drops to 2 bits (:class:`PackedTernary2Bit`)
 or 1.6 bits (:class:`PackedTernary53`) — below even the reference's TCSC
 index stream (32/s bits per *dense position*, i.e. 8 bits at s=4).
 
@@ -16,9 +16,9 @@ Both dense packed formats pad K to a multiple of the packing factor ``F`` and
 pack along K with **stride** ``Kq = K_pad / F``: the byte at packed row ``k'``
 holds the weights of dense rows ``{k' + j*Kq : j < F}``. Decoding field ``j``
 of a packed K-tile therefore yields a *contiguous* weight tile for dense rows
-``[j*Kq + k0, j*Kq + k0 + tile)`` — the kernel runs F small matmuls against
-contiguous X slices and never has to interleave sublanes, which a
-``(Kq, F, N) -> (K, N)`` reshape would require (slow on TPU).
+``[j*Kq + k0, j*Kq + k0 + tile)`` — a kernel runs F small matmuls against
+contiguous X slices and never has to interleave rows, which a
+``(Kq, F, N) -> (K, N)`` reshape would require.
 
 Codes are chosen so the all-zero byte decodes to weight 0, making zero-padding
 of K free:
@@ -155,17 +155,15 @@ class PackedTernary53(TernaryFormat):
 
 @register_format
 class BlockPackedTernary(TernaryFormat):
-    """Block-local stride-packed ternary — the single-dot MXU layout.
+    """Block-local stride-packed ternary — the single-dot layout.
 
     The global stride layouts above decode into ``factor`` *separate* weight
-    tiles per K-step, forcing ``factor`` small MXU dots whose per-dot launch
-    overhead dominates at small M (measured: 2-bit packed 13.1us vs dense 8.8us
-    at the north-star shape despite 4x less HBM traffic). Here the stride is
+    tiles per K-step, forcing ``factor`` small dots per step. Here the stride is
     applied *within blocks of ``factor * tile_kq`` dense rows*: packed row
     ``blk*tile_kq + kq`` holds dense rows ``blk*B + j*tile_kq + kq`` (B =
     ``factor * tile_kq``). Decoding a ``(tile_kq, TN)`` packed tile and
     concatenating the ``factor`` fields along sublanes yields the weight tile
-    of B *contiguous* dense rows — one MXU dot against a contiguous X slice,
+    of B *contiguous* dense rows — one dot against a contiguous X slice,
     no field-reshape of X at all.
 
     ``factor`` = 4 (2-bit codes) or 5 (base-3 codes); codecs as above. The
@@ -283,7 +281,7 @@ class PackedCSC(TernaryFormat):
 @register_format
 class DenseTernary(TernaryFormat):
     """Dense int8 ternary matrix — the trivial container backing the plain
-    MXU kernels and the correctness oracle."""
+    dense kernels and the correctness oracle."""
 
     ARRAY_FIELDS = ("dense",)
 

@@ -1,6 +1,6 @@
 """Split-sign compressed-column / compressed-row ternary containers.
 
-TPU-native re-design of the reference's central formats:
+Re-design of the reference's central formats:
 
 * :class:`TCSC` — split-sign CSC (``cpp_impl/data_structures/TCSC.h:5-50``):
   per-column pointer arrays ``col_start_pos``/``col_start_neg`` (N+1 each,
@@ -9,8 +9,7 @@ TPU-native re-design of the reference's central formats:
   lives in. Memory = ``N*(K/s + 2) * 4`` bytes (``readme.md:97-101``).
 * :class:`TCSR` — the row-major dual (``cpp_impl/data_structures/TCSR.h:5-50``).
 
-On TPU the per-column ragged slices cannot be looped over dynamically inside
-a compiled kernel, so each container additionally carries a *flattened
+Under jit the per-column ragged slices cannot be looped over dynamically, so each container additionally carries a *flattened
 companion view*: per-nonzero segment ids (``col_ids`` for TCSC, expanded from
 CSP/CSN exactly like a CSR->COO expansion). The XLA kernels
 (``ops/xla_kernels.py``) consume the companion view with gather +
@@ -41,8 +40,8 @@ def _csc_arrays(W: np.ndarray, value: int):
 def _ell_table(row_index, col_start, col_ids, K: int, N: int) -> np.ndarray:
     """Padded per-column gather table (cap, N): slot s of column n = the
     s-th row index of column n's stream; empty slots point at K (callers
-    append a zero column). Columns on the minor axis — the orientation the
-    TPU gathers at full rate (docs/perf.md §13)."""
+    append a zero column). Columns on the minor axis, so a gather of one
+    slot reads contiguous memory."""
     cap = int(np.diff(col_start).max(initial=0))
     tbl = np.full((max(cap, 1), N), K, np.int32)
     slot = np.arange(len(row_index), dtype=np.int64) \
@@ -86,9 +85,9 @@ class TCSC(TernaryFormat):
     # kernel path, where XLA's narrow scatter collapses (ops/xla_kernels.py).
     # Built LAZILY (prepare()/with_ell_tables()): cap is the max column
     # degree, so one dense-ish column makes them dwarf the CSC arrays —
-    # round 3 paid cap*N*4 bytes of host RAM + device transfer on every
-    # instance even when the chunked path never ran (ADVICE round 3, low).
-    # Not counted in size_bytes (derived data), but they ARE the real HBM
+    # building them eagerly paid cap*N*4 bytes of host RAM + device
+    # transfer on every instance even when the chunked path never ran.
+    # Not counted in size_bytes (derived data), but they ARE the real memory
     # stream of the chunked kernel — its own-bytes accounting must use
     # them, not the CSC arrays.
     ell_pos: np.ndarray = None  # (cap_pos, N) int32, or None until prepared

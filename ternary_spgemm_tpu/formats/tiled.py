@@ -1,25 +1,18 @@
-"""Tile-contiguous HBM layouts — the large-shape bandwidth formats.
+"""Tile-contiguous layouts — the large-shape bandwidth formats.
 
-Measured on TPU v5e: Pallas DMA of (TK, TN) tiles out of a row-major HBM
-array collapses from ~400 GB/s to ~230 GB/s once the array passes ~100 MB
-(strided tile reads), while the same bytes stored *tile-contiguously* with
-flat, wide tiles stream at 640-740 GB/s — ~90% of the chip's HBM bandwidth.
-At K=N=11008 this took the int8 dense kernel from 550 us to 183 us.
-
-So the production containers for large weights store their planes pre-tiled
-on the host: a 4-D ``(grid_k, grid_n, tile_k, tile_n)`` array whose every
-kernel-step block is one contiguous DMA. This is what "HBM-resident packed
-buffers staged through VMEM" means physically. Default tile (256, 4096) is
-the measured optimum; both dims must respect the dtype's minimal VMEM tile.
+The containers for large weights store their planes pre-tiled on the host: a
+4-D ``(grid_k, grid_n, tile_k, tile_n)`` array whose every kernel block is
+one contiguous read, however the full matrix is laid out.
 
 Two containers:
 
-* :class:`TiledDenseTernary` — int8 plane, 8 bits/weight, fastest wall-clock
-  at bandwidth-bound shapes;
+* :class:`TiledDenseTernary` — int8 plane, 8 bits/weight;
 * :class:`TiledBlockPacked` — 2-bit or base-3 codes with block-local stride
   (see ``BlockPackedTernary``), 2 / 1.6 bits per weight: here
   ``tile_k = factor * tile_kq`` *is* the stride block, so one packed tile
   decodes into one contiguous weight tile.
+
+Both decode on the device (``ops/tiled_kernels.py``) before an exact dot.
 """
 
 from __future__ import annotations

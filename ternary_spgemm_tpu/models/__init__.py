@@ -19,7 +19,6 @@ from ternary_spgemm_tpu.models.exported import (
     ExportedMLP,
     autotune_exported,
 )
-from ternary_spgemm_tpu.models.flax_module import FlaxBitLinear, FlaxTernaryMLP
 from ternary_spgemm_tpu.models.train import (
     make_sharded_lm_train_step,
     make_sharded_train_step,
@@ -66,3 +65,13 @@ __all__ = [
     "BitMoE", "BitMoEConfig", "ExportedMoE", "moe_param_shardings",
     "moe_route",
 ]
+
+
+def __getattr__(name):
+    # flax is optional: its wrappers import on first use, so the serving
+    # and training paths need nothing beyond jax, numpy and optax
+    if name in ("FlaxBitLinear", "FlaxTernaryMLP"):
+        from ternary_spgemm_tpu.models import flax_module
+        return getattr(flax_module, name)
+    raise AttributeError(
+        f"module 'ternary_spgemm_tpu.models' has no attribute {name!r}")

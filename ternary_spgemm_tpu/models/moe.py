@@ -8,19 +8,19 @@ straight-through estimator each forward — the same QAT regime as
 deployed form is exactly the reference's ternary SpMM operand
 (``readme.md:84-85`` flop model; generator semantics ``sparseUtils.h:26-90``).
 
-Routing is the TPU-idiomatic GShard/Switch formulation: top-k router
+Routing is the static-shape GShard/Switch formulation: top-k router
 probabilities become *dense one-hot dispatch/combine tensors* and the
 token→expert shuffle is two einsums — no sorting, no ragged shapes, static
 everything. Under GSPMD with the expert dimension sharded over a mesh axis,
 those einsums lower to exactly the all_to_all pair a hand-written MoE would
-issue, and they ride ICI. Tokens beyond an expert's static capacity are
+issue. Tokens beyond an expert's static capacity are
 dropped (output 0 — the residual connection carries them), the standard
 Switch-Transformer contract.
 
 All shapes are static under jit: capacity ``C`` is computed from the static
-token count, the per-expert position comes from a cumsum (prefix sums are a
-single VPU pass), and the expert stack applies as one batched einsum over the
-leading ``E`` axis — MXU-friendly, one dot per projection for ALL experts.
+token count, the per-expert position comes from a cumsum, and the expert
+stack applies as one batched einsum over the leading ``E`` axis — one dot
+per projection for ALL experts.
 """
 
 from __future__ import annotations
@@ -165,7 +165,7 @@ class ExportedMoE:
 
     The expert loop is a static Python loop (E kernel-call triples under
     one jit) — each expert's containers ride as pytree leaves, never as
-    closure captures (docs/perf.md §10). A registered pytree: pass the
+    closure captures (docs/perf.md). A registered pytree: pass the
     layer THROUGH jit as an argument.
     """
 

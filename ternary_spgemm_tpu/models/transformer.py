@@ -16,13 +16,12 @@ Two regimes, matching :mod:`ternary_spgemm_tpu.models.bitlinear`:
   frozen into a registered ternary container and runs through the SpMM kernel
   registry (with the custom-VJP layers, so a frozen backbone still
   backpropagates to its inputs). Attention softmax/rotary stay XLA —
-  elementwise chains fuse; the MXU work is the ternary projections.
+  elementwise chains fuse; the matrix work is the ternary projections.
 
-TPU notes: all shapes static; the causal mask is a compile-time constant;
-everything jits/shards under GSPMD. Head-count and d_ff are chosen
-column/row-parallel-friendly (:func:`lm_param_shardings` gives Megatron-style
-specs: QKV/gate/up split output features, O/down split input features, so one
-psum per attention and one per FFN rides ICI per block).
+All shapes are static and the causal mask is a compile-time constant, so
+everything jits and shards under GSPMD. :func:`lm_param_shardings` gives
+Megatron-style specs: QKV/gate/up split output features, O/down split input
+features, so each block pays one psum per attention and one per FFN.
 """
 
 from __future__ import annotations
@@ -56,8 +55,8 @@ def rotary_embed(x, *, base: float = 10000.0, offset=0):
 
     Standard RoPE with the half-split pairing; positions are
     ``offset..offset+T-1``. With the default static offset 0 the table is a
-    compile-time constant under jit (no dynamic gathers — what the TPU
-    wants); a TRACED scalar offset keeps one compiled program reusable
+    compile-time constant under jit (no dynamic gathers); a TRACED scalar
+    offset keeps one compiled program reusable
     across chunk starts (chunked prefill)."""
     T, D = x.shape[-2], x.shape[-1]
     half = D // 2
@@ -86,7 +85,7 @@ def causal_attend(n_heads, q, k, v, window: int = 0):
     jit). ``n_heads`` may be ``(n_q, n_kv)`` for grouped-query attention
     (k/v arrive at width ``n_kv * head_dim``); the grouped einsum keeps the
     kv tensors un-repeated — each kv head serves its G query heads in one
-    batched dot (the layout that also makes the dot MXU-efficient).
+    batched dot.
     ``window > 0``: sliding-window attention (each query sees the last
     ``window`` positions incl. itself — the Mistral local-attention
     pattern)."""
@@ -138,7 +137,7 @@ class BitTransformerConfig:
     # of one extra forward — the HBM-capacity lever for deep stacks
     remat: bool = False
     # compute dtype for block internals (params/logits stay f32): bf16
-    # halves activation HBM traffic and doubles MXU rate; the ternary
+    # halves activation memory traffic and doubles the tensor-core rate; the ternary
     # quantization braces values to gamma*{-1,0,1} so bf16's 8 mantissa
     # bits cover the QAT regime. Applies to the TRAINING forward
     # (apply/apply_with_aux); the KV-cached decode path (models/generate)
@@ -348,45 +347,26 @@ class ExportedTransformerBlock:
     """A trained block frozen into ternary containers, run on the kernel
     registry. A registered pytree: pass it THROUGH jit as an argument
     (``jax.jit(lambda blk, x: blk(x))``) so containers stay literal-free
-    (docs/perf.md §10); attention math stays XLA and fuses around the
+    (docs/perf.md); attention math stays XLA and fuses around the
     ternary projections."""
 
     def __init__(self, cfg: BitTransformerConfig, linears: dict,
-                 norm_attn, norm_ffn, moe=None, fused_ffn: bool = False,
-                 _ffn_biasless: Optional[bool] = None, qkv=None,
+                 norm_attn, norm_ffn, moe=None, qkv=None,
                  kernel: Optional[str] = None):
         self.cfg = cfg
         self.linears = dict(linears)
         self.norm_attn = jnp.asarray(norm_attn, jnp.float32)
         self.norm_ffn = jnp.asarray(norm_ffn, jnp.float32)
         self.moe = moe  # ExportedMoE for MoE-FFN configs, else None
-        self.fused_ffn = bool(fused_ffn)
         #: merged-QKV fast path: {"fmt": container over hstack(Wq,Wk,Wv),
         #: "scale": (3d,) per-segment gammas, "bias": (3d,)} or None
         self.qkv = qkv
         self.kernel = kernel
-        if _ffn_biasless is None:
-            # Decided HERE, on concrete arrays (under jit the block rides as
-            # a pytree argument, so __call__ only sees tracers and could not
-            # branch on bias values); carried through flatten/unflatten.
-            _ffn_biasless = self._check_ffn_biasless()
-        self._ffn_biasless = _ffn_biasless
-
-    def _check_ffn_biasless(self) -> bool:
-        import numpy as np
-        for n in ("w_gate", "w_up", "w_down"):
-            lin = self.linears.get(n)
-            if lin is None:
-                return False
-            if isinstance(lin.bias, jax.core.Tracer) or np.any(
-                    np.asarray(lin.bias)):
-                return False
-        return True
 
     @classmethod
     def from_params(cls, cfg: BitTransformerConfig, params: dict,
                     format_cls: Type[TernaryFormat], *,
-                    kernel: Optional[str] = None, fused_ffn: bool = False,
+                    kernel: Optional[str] = None,
                     fused_qkv: bool = False, with_transpose: bool = True,
                     a8: bool = False, **fmt_kwargs):
         moe = None
@@ -411,7 +391,7 @@ class ExportedTransformerBlock:
         if fused_qkv:
             qkv = cls._build_fused_qkv(params, format_cls, **fmt_kwargs)
         return cls(cfg, linears, params["norm_attn"], params["norm_ffn"], moe,
-                   fused_ffn=fused_ffn, qkv=qkv, kernel=kernel)
+                   qkv=qkv, kernel=kernel)
 
     @staticmethod
     def _build_fused_qkv(params: dict, format_cls, **fmt_kwargs):
@@ -419,8 +399,8 @@ class ExportedTransformerBlock:
         ``hstack(Wq, Wk, Wv)`` (d, 3d): one SpMM per attention input instead
         of three, sharing the activation read. The per-tensor absmean
         gammas become a per-SEGMENT output scale (exact — gamma multiplies
-        columns); biases concatenate. Serving-only fast path (like the
-        fused FFN, it bypasses the custom-VJP layers)."""
+        columns); biases concatenate. Serving-only fast path (it bypasses
+        the custom-VJP layers)."""
         import numpy as np
         from ternary_spgemm_tpu.models.bitlinear import ternary_quantize
 
@@ -436,53 +416,9 @@ class ExportedTransformerBlock:
                 "scale": jnp.asarray(np.concatenate(scales)),
                 "bias": jnp.asarray(np.concatenate(biases))}
 
-    def _fused_ffn_applicable(self) -> bool:
-        """The fused SwiGLU block kernel's contract (``ops/fused_ffn.py``):
-        TiledBitplane containers, biasless projections (decided at
-        construction on concrete arrays), single-tile output width. Row
-        count does NOT gate applicability — counts above the kernel's
-        serving-M limit are handled by CHUNKING (:meth:`_ffn`), so the
-        fused path's A8 numerics apply at every batch size, keeping the
-        full forward, prefill, and stepwise decode identical."""
-        from ternary_spgemm_tpu.formats import TiledBitplane
-
-        if self.moe is not None or not self._ffn_biasless:
-            return False
-        for n in ("w_gate", "w_up", "w_down"):
-            lin = self.linears.get(n)
-            if lin is None or not isinstance(lin.fmt, TiledBitplane):
-                return False
-        # the OUTPUT projection must fit one storage tile (the hidden width
-        # may span several — the kernel keeps per-tile accumulators)
-        return self.linears["w_down"].fmt.plane.shape[1] == 1
-
-    def _fused_ffn_call(self, h):
-        from ternary_spgemm_tpu.ops.fused_ffn import (
-            fused_bitplane_swiglu, requantize_rows)
-
-        g, u, dn = (self.linears[n] for n in ("w_gate", "w_up", "w_down"))
-        hq, sx = requantize_rows(h)
-        return fused_bitplane_swiglu(
-            hq, sx, g.fmt, u.fmt, dn.fmt, gamma_gate=g.gamma,
-            gamma_up=u.gamma, gamma_down=dn.gamma)
-
     def _ffn(self, h):
-        """SwiGLU FFN over flattened rows. With ``fused_ffn`` and the block
-        kernel's contract met, the whole FFN runs as ONE Pallas call per
-        <=128-row chunk in the deployed W1.58-A8 regime (per-row int8
-        activation quantization — the approximation every A8 serving path
-        already makes, docs/perf.md §11); otherwise three registry SpMM
-        calls. Chunking keeps the numerics identical across row counts
-        (prefill == decode == full forward) at the cost of re-streaming the
-        weight planes per chunk above 128 rows — the flag is serving-
-        oriented; leave it off for training-size batches."""
-        if self.fused_ffn and self._fused_ffn_applicable():
-            rows = h.shape[0]
-            if rows <= 128:
-                return self._fused_ffn_call(h)
-            parts = [self._fused_ffn_call(h[i:i + 128])
-                     for i in range(0, rows, 128)]
-            return jnp.concatenate(parts, axis=0)
+        """SwiGLU FFN over flattened rows: three registry SpMM calls with
+        the silu·mul between them, which XLA fuses."""
         return self.linears["w_down"](
             jax.nn.silu(self.linears["w_gate"](h)) * self.linears["w_up"](h))
 
@@ -503,7 +439,8 @@ class ExportedTransformerBlock:
                     _default_a8_kernel)
 
                 hq, s = _requantize_a8(h)
-                kname = self.kernel or _default_a8_kernel(self.qkv["fmt"])
+                kname = self.kernel or _default_a8_kernel(self.qkv["fmt"],
+                                                          h.shape[0])
                 out = ternary_spgemm(hq, self.qkv["fmt"], z, None,
                                      kernel=kname)
                 out = (out * s) * self.qkv["scale"][None, :] \
@@ -525,34 +462,35 @@ class ExportedTransformerBlock:
         return bool(lin is not None and getattr(lin, "a8", False))
 
     def __call__(self, x):
-        from ternary_spgemm_tpu.ops import stack_mode
-
         B, T, d = x.shape
         flat = lambda n, z: self.linears[n](z.reshape(B * T, -1)).reshape(
             B, T, -1)
         attend = lambda q, k, v: causal_attend(self.cfg.head_tuple, q, k, v,
                                                window=self.cfg.window)
-        # a block is a multi-kernel program: trace with the measured
-        # in-stack tile rule (docs/perf.md §16)
-        with stack_mode():
-            h = rms_norm(x, self.norm_attn)
-            q, kk, v = (z.reshape(B, T, -1)
-                        for z in self._qkv(h.reshape(B * T, d)))
-            attn = flat("wo", attend(q, kk, v))
-            x = x + attn
-            h = rms_norm(x, self.norm_ffn)
-            if self.moe is not None:
-                ffn = self.moe(h)
-            else:
-                ffn = self._ffn(h.reshape(B * T, d)).reshape(B, T, d)
+        h = rms_norm(x, self.norm_attn)
+        q, kk, v = (z.reshape(B, T, -1)
+                    for z in self._qkv(h.reshape(B * T, d)))
+        attn = flat("wo", attend(q, kk, v))
+        x = x + attn
+        h = rms_norm(x, self.norm_ffn)
+        if self.moe is not None:
+            ffn = self.moe(h)
+        else:
+            ffn = self._ffn(h.reshape(B * T, d)).reshape(B, T, d)
         return x + ffn
+
+
+def _unflatten_block(aux, children) -> "ExportedTransformerBlock":
+    # Bypass __init__: unflatten must tolerate tracer/sentinel children
+    # (jax calls it during tracing, lowering and structure-only transforms).
+    obj = object.__new__(ExportedTransformerBlock)
+    obj.linears, obj.norm_attn, obj.norm_ffn, obj.moe, obj.qkv = children
+    obj.cfg, obj.kernel = aux
+    return obj
 
 
 jax.tree_util.register_pytree_node(
     ExportedTransformerBlock,
     lambda b: ((b.linears, b.norm_attn, b.norm_ffn, b.moe, b.qkv),
-               (b.cfg, b.fused_ffn, b._ffn_biasless, b.kernel)),
-    lambda aux, ch: ExportedTransformerBlock(aux[0], ch[0], ch[1], ch[2],
-                                             ch[3], fused_ffn=aux[1],
-                                             _ffn_biasless=aux[2],
-                                             qkv=ch[4], kernel=aux[3]))
+               (b.cfg, b.kernel)),
+    _unflatten_block)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host core (``native/ternary_native.cpp``).
 
-The compute path is XLA/Pallas on TPU; the *host-side* one-time costs —
+The compute path runs on the device; the *host-side* one-time costs —
 benchmark matrix generation and container construction — are C++ here,
 mirroring the reference's native data-structure layer
 (``cpp_impl/data_structures/*.h``, ``cpp_impl/sparseUtils.h:26-90``). Every
@@ -51,10 +51,10 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.tcsc_count.argtypes = [p8, i64, i64, p64, p64]
     lib.tcsc_fill.argtypes = [p8, i64, i64, p32, p32, p32, p32, p32, p32]
     try:
-        lib.pack_bitplane.argtypes = [p8, i64, i64, i64, i64, i64, pu8, p32]
+        lib.pack_bitplane.argtypes = [p8, i64, i64, i64, i64, i64, pu8]
         lib.ell_deposit_caps.argtypes = [p8, i64, i64, i64, i64, p32, p32]
         lib.ell_deposit_fill.argtypes = [p8, i64, i64, i64, i64, i64, i64,
-                                         p8, p32]
+                                         p8]
     except AttributeError:  # stale .so predating the round-2 packers
         pass
     _lib = lib
@@ -127,7 +127,7 @@ def pack_base3(W: np.ndarray) -> np.ndarray:
 
 
 def pack_bitplane(W: np.ndarray, tkb: int, tile_n: int):
-    """(plane, wsum) arrays of TiledBitplane's layout; bit-exact vs
+    """The plane array of TiledBitplane's layout; bit-exact vs
     formats/bitplane.py's numpy packer (property-tested). Returns None when
     the native core is unavailable (callers fall back to numpy)."""
     lib = _load()
@@ -140,13 +140,12 @@ def pack_bitplane(W: np.ndarray, tkb: int, tile_n: int):
     Np = -(-N // tile_n) * tile_n
     nb, gn = Kp // B, Np // tile_n
     plane = np.zeros((nb, gn, 2 * tkb, tile_n), np.uint8)
-    wsum = np.zeros((nb, gn, 1, tile_n), np.int32)
-    lib.pack_bitplane(W, K, N, tkb, tile_n, gn, plane, wsum)
-    return plane, wsum
+    lib.pack_bitplane(W, K, N, tkb, tile_n, gn, plane)
+    return plane
 
 
 def ell_deposit_arrays(W: np.ndarray, tile_n: int):
-    """(plane, cap_pos, cap_neg, wsum) of TiledEllDeposit's layout;
+    """(plane, cap_pos, cap_neg) of TiledEllDeposit's layout;
     bit-exact vs formats/ell_deposit.py's numpy packer (property-tested).
     Returns None when the native core lacks the packers."""
     lib = _load()
@@ -165,9 +164,8 @@ def ell_deposit_arrays(W: np.ndarray, tile_n: int):
     cap_n = max(int(cap_neg.max()), 1)
     R = 8 * (cap_p + cap_n)
     plane = np.full((nsb, gn, R, tile_n), WORD_ROWS, np.int8)
-    wsum = np.zeros((nsb, gn, 1, tile_n), np.int32)
-    lib.ell_deposit_fill(W, K, N, tile_n, gn, cap_p, cap_n, plane, wsum)
-    return plane, cap_pos, cap_neg, wsum
+    lib.ell_deposit_fill(W, K, N, tile_n, gn, cap_p, cap_n, plane)
+    return plane, cap_pos, cap_neg
 
 
 def tcsc_arrays(W: np.ndarray):

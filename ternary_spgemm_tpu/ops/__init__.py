@@ -1,7 +1,7 @@
-"""Compute kernels: XLA formulations + Pallas TPU kernels.
+"""Compute kernels: plain-XLA formulations and one Pallas kernel for Hopper.
 
-The TPU-native analogue of the reference's kernel layer
-(``cpp_impl/comp.h`` / ``cpp_impl/comp_prelu.h``). Kernels are registered in
+The analogue of the reference's kernel layer (``cpp_impl/comp.h`` /
+``cpp_impl/comp_prelu.h``). Kernels are registered in
 :mod:`ternary_spgemm_tpu.ops.api` (the ``add_function`` analogue,
 ``main.cpp:21-33``) and dispatched via :func:`ternary_spgemm`.
 """
@@ -16,17 +16,10 @@ from ternary_spgemm_tpu.ops.api import (
     ternary_spgemm,
 )
 from ternary_spgemm_tpu.ops import xla_kernels  # noqa: F401  (registers kernels)
-from ternary_spgemm_tpu.ops import pallas_kernels  # noqa: F401  (registers kernels)
-from ternary_spgemm_tpu.ops.fused_ffn import (
-    fused_bitplane_ffn,
-    fused_bitplane_swiglu,
-    requantize_rows,
-)
-from ternary_spgemm_tpu.ops.pallas_kernels import stack_mode
+from ternary_spgemm_tpu.ops import triton_bitplane  # noqa: F401  (registers)
+from ternary_spgemm_tpu.ops import tiled_kernels  # noqa: F401  (registers)
 
 __all__ = [
     "KernelSpec", "all_kernels", "get_kernel", "kernels_for_format",
     "register_kernel", "ternary_spgemm", "autotune",
-    "fused_bitplane_ffn", "fused_bitplane_swiglu", "requantize_rows",
-    "stack_mode",
 ]

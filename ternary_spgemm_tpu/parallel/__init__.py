@@ -1,8 +1,8 @@
 """Multi-chip execution: mesh construction, container sharding, sharded SpMM.
 
 Net-new vs the single-node reference (SURVEY.md §2.3): ``jax.sharding`` +
-``shard_map`` SPMD over ICI/DCN, with the activation all-gather overlapped
-against kernel compute in the multi-host configuration.
+``shard_map`` SPMD with XLA collectives (NCCL between GPUs), with the
+activation all-gather overlapped against kernel compute in the ring scheme.
 """
 
 from ternary_spgemm_tpu.parallel.sharding import (
@@ -20,7 +20,6 @@ from ternary_spgemm_tpu.parallel.pipeline import (
     pipeline_lm_apply,
     stack_stages,
 )
-from ternary_spgemm_tpu.parallel.ring_kernel import ring_allgather_spgemm
 from ternary_spgemm_tpu.parallel.spgemm import (
     column_sharded_spgemm,
     overlapped_gather_spgemm,
@@ -33,6 +32,6 @@ __all__ = [
     "column_leaf_specs", "row_leaf_specs", "localize",
     "container_from_local_shard",
     "column_sharded_spgemm", "row_sharded_spgemm", "overlapped_gather_spgemm",
-    "ring_allgather_spgemm", "tensor_parallel_fused_swiglu",
+    "tensor_parallel_fused_swiglu",
     "pipeline_apply", "pipeline_lm_apply", "stack_stages",
 ]

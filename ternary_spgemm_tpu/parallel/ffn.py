@@ -1,27 +1,18 @@
-"""Tensor-parallel fused SwiGLU FFN: the block kernel under ``shard_map``.
+"""Tensor-parallel SwiGLU FFN over ternary bitplane projections.
 
-Megatron-style FFN tensor parallelism (the net-new distributed layer,
-SURVEY.md §2.3) composed with the fused block kernel
-(:func:`~ternary_spgemm_tpu.ops.fused_ffn.fused_bitplane_swiglu`): gate/up
-projections COLUMN-sharded along ``axis`` (each device owns a hidden-width
-shard), the down projection ROW-sharded on the same boundary, so each
-device runs its entire local block — both up-projections, silu·mul,
-per-row requantize, down-projection — as ONE Pallas call with the hidden
-shard never leaving VMEM *or the device*; partial outputs reduce with one
-``psum`` (or ``psum_scatter``) per block, the same single collective the
-unfused Megatron FFN pays.
+Megatron-style FFN tensor parallelism (SURVEY.md §2.3): the gate and up
+projections are COLUMN-sharded along ``axis`` (each device owns a slice of
+the hidden width), the down projection is ROW-sharded on the same boundary,
+so each device runs its whole local SwiGLU — both up-projections, silu·mul,
+the per-row int8 requantize, the down-projection — on its own shard, and
+the partial outputs meet in one ``psum`` (or ``psum_scatter``) per block.
+XLA hands the collective to NCCL.
 
 Numerics: the per-row int8 requantize between the projections happens
 per-SHARD — each device scales its own hidden slice, i.e. per-(row, shard)
-scale groups. That is a strictly *finer* quantization grid than the
-single-device per-row scale (shard-local maxima are <= the global row
-maximum), and the p=1 case degenerates to the single-device kernel
-exactly. The test reference (tests/test_parallel_ffn.py) replicates the
-per-shard semantics with unfused registry calls.
-
-This also lifts the fused kernel's single-N-tile OUTPUT restriction at
-scale: shard N2 across devices (``scatter_output``) and each device's
-output shard is one storage tile again.
+scale groups. That is a finer quantization grid than the single-device
+per-row scale (shard-local maxima are <= the row maximum), and the p=1 case
+is the single-device block exactly.
 """
 
 from __future__ import annotations
@@ -29,10 +20,13 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
+import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ternary_spgemm_tpu import platform
 from ternary_spgemm_tpu.formats import TiledBitplane
-from ternary_spgemm_tpu.ops.fused_ffn import fused_bitplane_swiglu
+from ternary_spgemm_tpu.models.exported import requantize_rows
+from ternary_spgemm_tpu.ops import ternary_spgemm
 from ternary_spgemm_tpu.parallel.sharding import (
     column_leaf_specs,
     localize,
@@ -45,6 +39,27 @@ from ternary_spgemm_tpu.parallel.spgemm import (
 )
 
 
+def swiglu_a8(xq, sx, fmt_gate: TiledBitplane, fmt_up: TiledBitplane,
+              fmt_down: TiledBitplane, *, gamma_gate: float = 1.0,
+              gamma_up: float = 1.0, gamma_down: float = 1.0):
+    """Ternary SwiGLU FFN over int8-quantized activations on one device.
+
+    ``xq`` (M, K) integer-valued with ``|xq| <= 127`` (from
+    :func:`~ternary_spgemm_tpu.models.exported.requantize_rows`), ``sx``
+    (M, 1) its per-row scale. The three projections are biasless; the
+    hidden activations are requantized per row before the down projection
+    (the W1.58-A8 regime)."""
+    M = xq.shape[0]
+    zg = jnp.zeros((fmt_gate.N,), jnp.float32)
+    zd = jnp.zeros((fmt_down.N,), jnp.float32)
+    k1 = platform.bitplane_a8_kernel(fmt_gate, M)
+    k2 = platform.bitplane_a8_kernel(fmt_down, M)
+    g = gamma_gate * (sx * ternary_spgemm(xq, fmt_gate, zg, kernel=k1))
+    u = gamma_up * (sx * ternary_spgemm(xq, fmt_up, zg, kernel=k1))
+    hq, s = requantize_rows(jax.nn.silu(g) * u)
+    return ternary_spgemm(hq, fmt_down, zd, kernel=k2) * (s * gamma_down)
+
+
 def tensor_parallel_fused_swiglu(xq, sx, fmt_gate: TiledBitplane,
                                  fmt_up: TiledBitplane,
                                  fmt_down: TiledBitplane, *, mesh: Mesh,
@@ -54,13 +69,13 @@ def tensor_parallel_fused_swiglu(xq, sx, fmt_gate: TiledBitplane,
                                  gamma_gate: float = 1.0,
                                  gamma_up: float = 1.0,
                                  gamma_down: float = 1.0):
-    """Run the fused SwiGLU FFN block tensor-parallel over ``mesh[axis]``.
+    """Run the SwiGLU FFN block tensor-parallel over ``mesh[axis]``.
 
     ``xq``/``sx``: int8-quantized activations + per-row scale (replicated
     over ``axis``; optionally sharded along ``batch_axis``). ``fmt_gate``/
     ``fmt_up`` column-sharded along ``axis``; ``fmt_down`` row-sharded on
     the same hidden boundary. Requires the hidden width to split evenly:
-    ``N1 % (tile_n * n_devices) == 0`` and ``K2`` alignment per
+    whole storage tiles per device, and ``K2`` alignment per
     :func:`~ternary_spgemm_tpu.parallel.spgemm._check_tiled_alignment`.
     Returns Y replicated (default) or column-sharded (``scatter_output``).
     """
@@ -94,9 +109,9 @@ def tensor_parallel_fused_swiglu(xq, sx, fmt_gate: TiledBitplane,
             f"scatter_output needs N2={N2} divisible by {n_dev} devices")
 
     def local(x, s, fg, fu, fd):
-        y = fused_bitplane_swiglu(
-            x, s, localize(fg), localize(fu), localize(fd),
-            gamma_gate=gamma_gate, gamma_up=gamma_up, gamma_down=gamma_down)
+        y = swiglu_a8(x, s, localize(fg), localize(fu), localize(fd),
+                      gamma_gate=gamma_gate, gamma_up=gamma_up,
+                      gamma_down=gamma_down)
         # localize() reports the PADDED output width (gn*tile_n — it cannot
         # recover the true N from local leaves); the pad columns are exact
         # zeros, slice them before the collective

@@ -68,10 +68,7 @@ def pipeline_apply(stage_fn, stacked_params, x, mesh: Mesh, *,
         # activation); mark the zero initializer accordingly or scan's
         # varying-axes typecheck rejects the ppermute output as carry
         h0 = jnp.zeros_like(xm[0])
-        if hasattr(jax.lax, "pcast"):
-            h0 = jax.lax.pcast(h0, (axis,), to="varying")
-        else:  # older spelling (same guard as parallel/spgemm.py)
-            h0 = jax.lax.pvary(h0, (axis,))
+        h0 = jax.lax.pcast(h0, (axis,), to="varying")
         _, outs = jax.lax.scan(body, h0, jnp.arange(steps))
         return outs[None]  # (1, steps, mb, ...) -> global (P, steps, ...)
 

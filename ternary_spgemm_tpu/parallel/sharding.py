@@ -25,8 +25,8 @@ row-parallel along the K-block axis, since local offsets never cross
 blocks). The 1-D stream
 formats (TCSC/TCSR/interleaved) have data-dependent per-column nnz, so
 equal-size static shards do not exist — shard their rectangular companions
-instead. That asymmetry is a TPU design fact (SPMD compilation needs static
-shapes), not a limitation.
+instead. That asymmetry follows from SPMD compilation, which needs static
+shapes; it is not a limitation.
 """
 
 from __future__ import annotations
@@ -99,11 +99,10 @@ def column_leaf_specs(format_cls: Type[TernaryFormat], axis: str):
         return _leaf_specs(format_cls, axis, {
             "plane": (4, 1), "cap_pos": (2, 1), "cap_neg": (2, 1)})
     if format_cls is TiledBitplane:
-        return _leaf_specs(format_cls, axis, {"plane": (4, 1), "wsum": (4, 1)})
+        return _leaf_specs(format_cls, axis, {"plane": (4, 1)})
     if format_cls is TiledEllDeposit:
         return _leaf_specs(format_cls, axis, {
-            "plane": (4, 1), "cap_pos": (2, 1), "cap_neg": (2, 1),
-            "wsum": (4, 1)})
+            "plane": (4, 1), "cap_pos": (2, 1), "cap_neg": (2, 1)})
     raise TypeError(
         f"{format_cls.__name__} is not column-shardable (ragged 1-D streams); "
         "use one of " + ", ".join(c.__name__ for c in SHARDABLE_FORMATS))
@@ -139,11 +138,10 @@ def row_leaf_specs(format_cls: Type[TernaryFormat], axis: str):
         return _leaf_specs(format_cls, axis, {
             "plane": (4, 0), "cap_pos": (2, 0), "cap_neg": (2, 0)})
     if format_cls is TiledBitplane:
-        return _leaf_specs(format_cls, axis, {"plane": (4, 0), "wsum": (4, 0)})
+        return _leaf_specs(format_cls, axis, {"plane": (4, 0)})
     if format_cls is TiledEllDeposit:
         return _leaf_specs(format_cls, axis, {
-            "plane": (4, 0), "cap_pos": (2, 0), "cap_neg": (2, 0),
-            "wsum": (4, 0)})
+            "plane": (4, 0), "cap_pos": (2, 0), "cap_neg": (2, 0)})
     raise TypeError(f"{format_cls.__name__} is not row-shardable")
 
 
@@ -200,15 +198,14 @@ def localize(fmt: TernaryFormat) -> TernaryFormat:
     if cls is TiledBitplane:
         p = fmt.plane
         return TiledBitplane(
-            plane=p, wsum=fmt.wsum,
-            K=min(fmt.K, p.shape[0] * 8 * fmt.tkb),
+            plane=p, K=min(fmt.K, p.shape[0] * 8 * fmt.tkb),
             N=p.shape[1] * fmt.tile_n, tkb=fmt.tkb, tile_n=fmt.tile_n)
     if cls is TiledEllDeposit:
         from ternary_spgemm_tpu.formats.ell_deposit import SB_ROWS
         p = fmt.plane
         return TiledEllDeposit(
             plane=p, cap_pos=fmt.cap_pos, cap_neg=fmt.cap_neg,
-            wsum=fmt.wsum, K=min(fmt.K, p.shape[0] * SB_ROWS),
+            K=min(fmt.K, p.shape[0] * SB_ROWS),
             N=p.shape[1] * fmt.tile_n, tile_n=fmt.tile_n,
             cap_p_max=fmt.cap_p_max)
     raise TypeError(cls.__name__)

@@ -239,10 +239,7 @@ def overlapped_gather_spgemm(X, fmt, bias, alpha=None, *, mesh: Mesh, axis: str,
         # mark the accumulator as varying over the mesh axis (the loop carry
         # must type-match the ppermute'd chunk even with check_vma off)
         y0 = jnp.zeros((d * m_chunk, n_local), jnp.float32)
-        if hasattr(jax.lax, "pcast"):
-            y0 = jax.lax.pcast(y0, axis, to="varying")
-        else:  # older spelling
-            y0 = jax.lax.pvary(y0, axis)
+        y0 = jax.lax.pcast(y0, axis, to="varying")
         _, y = jax.lax.fori_loop(0, d, step, (x_chunk, y0), unroll=True)
         return y
 

@@ -3,10 +3,10 @@
 The reference has four observability tiers (SURVEY.md §5): (1) per-ISA cycle
 timers (``tsc_x86.h``/``vct_arm.h``), (2) Apple PMU counters (``kperf.h``),
 (3) compiled-in flop/byte instrumentation (``-DINSTRUMENTATION_RUN``),
-(4) DynamoRIO cache simulation. The TPU equivalents, in the same order:
+(4) DynamoRIO cache simulation. The device equivalents, in the same order:
 
 1/2. :func:`trace` — ``jax.profiler`` device traces (view in TensorBoard /
-     Perfetto; includes per-kernel device time and DMA activity), plus
+     Perfetto; includes per-kernel device time and copies), plus
      :func:`device_memory_stats` for live HBM accounting.
 3.   Analytic instrumentation lives in ``bench/instrument.py`` (same
      formulas as the reference's ``main.cpp:264-271``).

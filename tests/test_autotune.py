@@ -24,14 +24,16 @@ def _setup():
 
 def test_candidates_respect_domain():
     _, fmt, X, _ = _setup()
-    names_int = {s.name for s in candidates_for(fmt, 512.0, True)}
-    names_f32 = {s.name for s in candidates_for(fmt, 512.0, False)}
-    # integer domain admits the _i8 family; float domain must not
-    assert any("_i8" in n for n in names_int)
-    assert not any("_i8" in n or "_x8" in n for n in names_f32)
-    # |x|>512 excludes the i8 split even for integers
-    assert not any("_i8" in n for n in
-                   {s.name for s in candidates_for(fmt, 600.0, True)})
+    names_int = {s.name for s in candidates_for(fmt, 127.0, True)}
+    names_f32 = {s.name for s in candidates_for(fmt, 127.0, False)}
+    # the int8 domain admits the _x8 kernels; a float domain must not
+    assert "TiledBitplane_x8" in names_int
+    assert not any("_x8" in n for n in names_f32)
+    # |x|>127 excludes them even for integers
+    assert not any("_x8" in n for n in
+                   {s.name for s in candidates_for(fmt, 512.0, True)})
+    # the GPU-only Triton kernel is no candidate on the CPU
+    assert "TritonTiledBitplane_x8" not in names_int
 
 
 def test_autotune_returns_valid_kernel_and_memoizes(tmp_path):
@@ -115,11 +117,14 @@ def test_exported_layer_kernel_auto(tmp_path):
     assert (tmp_path / "serve.json").exists()
 
 
-def test_autotune_serving_flags(tmp_path):
-    """autotune_serving_flags: measures the fused_ffn x fused_qkv combos
-    on a decode-shaped probe, returns bools, memoizes in the shared JSON
-    cache; from_params(auto=True) applies the measured picks (round-4
-    VERDICT #6 — the flags were user-set guesses before)."""
+@pytest.mark.parametrize("kv_heads,window", [(0, 0), (1, 3)],
+                         ids=["mha", "gqa-window"])
+def test_autotune_serving_flags(tmp_path, kv_heads, window):
+    """autotune_serving_flags: measures separate vs merged q/k/v on a
+    decode-shaped probe with the layer's kernel, returns a bool, memoizes
+    in the shared JSON cache; from_params(auto=True) applies the measured
+    pick. The GQA case needs the head tuple and the window (a plain
+    n_heads crashed the probe under GQA)."""
     import jax
 
     from ternary_spgemm_tpu.models import (
@@ -128,24 +133,29 @@ def test_autotune_serving_flags(tmp_path):
         ExportedTransformerLM, autotune_serving_flags)
 
     cfg = BitTransformerConfig(vocab=32, d_model=128, n_heads=2, d_ff=256,
-                               n_layers=1)
+                               n_layers=1, n_kv_heads=kv_heads,
+                               window=window)
     model = BitTransformerLM(cfg)
     params = model.init(jax.random.key(0))
     cache = str(tmp_path / "serve.json")
     picks = autotune_serving_flags(cfg, params["blocks"][0], TiledBitplane,
+                                   kernel="TiledBitplane_x8",
                                    cache_path=cache, verbose=True)
-    assert set(picks) == {"fused_ffn", "fused_qkv"}
+    assert set(picks) == {"fused_qkv"}
     assert all(isinstance(v, bool) for v in picks.values())
     assert (tmp_path / "serve.json").exists()
     # memo hit: second call returns identically without re-probing
     assert autotune_serving_flags(cfg, params["blocks"][0], TiledBitplane,
+                                  kernel="TiledBitplane_x8",
                                   cache_path=cache) == picks
 
+    # from_params forwards its kernel to the probe: same memo key, so the
+    # probe is not re-run and the pick matches
     lm = ExportedTransformerLM.from_params(
-        model, params, TiledBitplane, kernel="PallasTiledBitplane_i8",
+        model, params, TiledBitplane, kernel="TiledBitplane_x8",
         a8=True, with_transpose=False, auto=True, cache_path=cache)
     blk = lm.blocks[0]
-    assert blk.fused_ffn == picks["fused_ffn"]
+    assert blk.kernel == "TiledBitplane_x8"
     assert (blk.qkv is not None) == picks["fused_qkv"]
     toks = jax.random.randint(jax.random.key(1), (1, 4), 0, cfg.vocab)
     assert np.all(np.isfinite(np.asarray(lm(toks))))

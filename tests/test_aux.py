@@ -81,12 +81,12 @@ def test_format_diagram_generators(tmp_path):
     """Figure generators (plots/data_example_image analogue) draw every
     diagram from the real from_dense output without error."""
     import sys
-    sys.path.insert(0, "/root/repo/tools")
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
     import format_diagram
 
     rc = format_diagram.main(["--outdir", str(tmp_path)])
     assert rc == 0
-    import os
     made = sorted(os.listdir(tmp_path))
     assert made == ["bitplane_structure.png", "blocked_tcsc_structure.png",
                     "ell_deposit_structure.png", "tcsc_structure.png"]
@@ -149,8 +149,8 @@ def test_lm_serving_bundle_roundtrip(tmp_path):
 
 
 def test_lm_serving_bundle_fused_paths(tmp_path):
-    """Bundle round-trip of the serving fast paths: fused_ffn flag, the
-    merged-QKV container, and with_transpose=False (forward-only) layers."""
+    """Bundle round-trip of the serving fast paths: the merged-QKV
+    container and with_transpose=False (forward-only) layers."""
     import pytest
     from ternary_spgemm_tpu.formats import TiledBitplane
     from ternary_spgemm_tpu.models import (
@@ -162,14 +162,14 @@ def test_lm_serving_bundle_fused_paths(tmp_path):
     model = BitTransformerLM(cfg)
     params = model.init(jax.random.key(5))
     lm = ExportedTransformerLM.from_params(
-        model, params, TiledBitplane, kernel="PallasTiledBitplane_i8",
-        fused_ffn=True, fused_qkv=True, with_transpose=False)
+        model, params, TiledBitplane, kernel="TiledBitplane",
+        fused_qkv=True, with_transpose=False)
     assert lm.blocks[0].linears["wq"].fmt_t is None
     path = str(tmp_path / "bundle_fused")
     checkpoint.save_lm_bundle(path, lm)
     lm2 = checkpoint.load_lm_bundle(path)
     blk2 = lm2.blocks[0]
-    assert blk2.fused_ffn and blk2.qkv is not None
+    assert blk2.qkv is not None
     assert blk2.linears["wq"].fmt_t is None
 
     toks = jax.random.randint(jax.random.key(6), (1, 4), 0, cfg.vocab)
@@ -227,7 +227,7 @@ def test_lm_serving_bundle_a8_roundtrip(tmp_path):
     model = BitTransformerLM(cfg)
     params = model.init(jax.random.key(7))
     lm = ExportedTransformerLM.from_params(
-        model, params, TiledBitplane, kernel="PallasTiledBitplane_i8",
+        model, params, TiledBitplane, kernel="TiledBitplane_x8",
         a8=True, with_transpose=False)
     assert lm.blocks[0].linears["wq"].a8
     path = str(tmp_path / "bundle_a8")
@@ -314,7 +314,7 @@ def test_export_model_cli_serving_flags(tmp_path):
     bundle = str(tmp_path / "bundle_srv.npz")
     rc = export_model.main([
         "export", "--checkpoint", ckpt, "--cfg", str(cfg_json),
-        "--format", "TiledBitplane", "--kernel", "PallasTiledBitplane_i8",
+        "--format", "TiledBitplane", "--kernel", "TiledBitplane_x8",
         "--a8", "--serving-only", "--fused-qkv", "--head-dtype", "bf16",
         "--out", bundle])
     assert rc == 0

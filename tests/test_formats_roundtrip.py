@@ -1,6 +1,6 @@
 """Round-trip tests: dense -> format -> dense equality for every container.
 
-TPU-native analogue of the reference's data-structure test harness
+The analogue of the reference's data-structure test harness
 (``cpp_impl/test_data_structure.cpp:47-150``): exhaustive small grids x many
 seeds (``testMany``) plus the canonical (K, N) x sparsity shapes
 (``testRequired``, scaled to test-friendly sizes).

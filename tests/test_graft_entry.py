@@ -1,11 +1,12 @@
 """Driver contract: entry() compiles single-chip; dryrun_multichip on 8 CPUs."""
 
+import os
 import sys
 
 import jax
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import __graft_entry__ as graft  # noqa: E402
 

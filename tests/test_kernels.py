@@ -1,10 +1,11 @@
 """Correctness gate: every registered kernel vs the dense reference.
 
-TPU-native analogue of the reference's ``-correctness`` path
+The analogue of the reference's ``-correctness`` path
 (``cpp_impl/main.cpp:206-249``): build every format from one random W, run
 every registered kernel, compare elementwise against the dense ``jnp`` GEMM
 within the reference tolerance (abs 1e-5, ``sparseUtils.h:147``). Approximate
-kernels (bf16 MXU) get a relative tolerance instead.
+kernels (bf16 operands) get a relative tolerance instead. GPU-only kernels
+(Pallas through Triton) run in Pallas' interpreter here.
 """
 
 import numpy as np
@@ -45,13 +46,20 @@ _FMT_KWARGS = {
     BlockedEllTCSC: dict(block_k=32, tile_n=128),
     EllTCSC: dict(tile_n=128),
     TiledEllTCSC: dict(block_k=31, tile_n=128),
-    TiledBitplane: dict(tkb=4, tile_n=128),
+    TiledBitplane: dict(tkb=32, tile_n=128),
     TiledEllDeposit: dict(tile_n=128),
 }
 
 
 def _build(format_cls, W):
     return format_cls.from_dense(W, **_FMT_KWARGS.get(format_cls, {}))
+
+
+def run_kernel(spec, X, fmt, b, alpha=None):
+    """Call a registered kernel; GPU-only kernels run interpreted."""
+    if spec.gpu_only:
+        return spec.fn(X, fmt, b, alpha, interpret=True)
+    return spec(X, fmt, b, alpha)
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +90,7 @@ def test_kernel_matches_dense_reference(problem, name):
     spec = all_kernels()[name]
     W, X, b, alpha, want, _ = _domain_inputs(problem, spec)
     fmt = _build(spec.format_cls, W)
-    got = np.asarray(spec(X, fmt, b))
+    got = np.asarray(run_kernel(spec, X, fmt, b))
     if spec.approximate:
         # bf16 operands: per-term abs error <= |x|*2^-9 <= 1, f32 accumulate
         # => bound = nnz-per-column ~= K/S terms of error 1 each.
@@ -97,7 +105,7 @@ def test_kernel_fused_prelu(problem, name):
     spec = all_kernels()[name]
     W, X, b, alpha, _, want_prelu = _domain_inputs(problem, spec)
     fmt = _build(spec.format_cls, W)
-    got = np.asarray(spec(X, fmt, b, alpha))
+    got = np.asarray(run_kernel(spec, X, fmt, b, alpha))
     if spec.approximate:
         np.testing.assert_allclose(got, want_prelu, atol=2.0 * (K // S))
     else:
@@ -120,9 +128,8 @@ def test_north_star_shape_small_m(m):
 
 
 def test_default_dispatch_is_safe_and_exact():
-    """Default ternary_spgemm dispatch must avoid approximate and
-    integer-only (_i8) kernels when a fully-exact kernel exists, and still
-    work for formats whose only kernel is integer-only."""
+    """Default ternary_spgemm dispatch must pick a fully-exact float32
+    kernel: never an approximate, restricted-domain (_x8) or GPU-only one."""
     from ternary_spgemm_tpu.formats import BlockPackedTernary
     from ternary_spgemm_tpu.ops import ternary_spgemm
 
@@ -133,11 +140,10 @@ def test_default_dispatch_is_safe_and_exact():
     want = np.asarray(reference.dense_gemm(X_float, W, b))
     got = np.asarray(ternary_spgemm(X_float, DenseTernary.from_dense(W), b))
     assert reference.compare_results(got, want)
-    # BlockPacked's only kernel is _i8 -> integer activations required
-    X_int = generate_x(4, 64, seed=10)
-    want_i = np.asarray(reference.dense_gemm(X_int, W, b))
-    got_i = np.asarray(ternary_spgemm(X_int, BlockPackedTernary.from_dense(W), b))
-    assert reference.compare_results(got_i, want_i)
+    # formats with restricted or GPU-only kernels too: the exact one wins
+    for cls in (BlockPackedTernary, TiledBitplane):
+        got_i = np.asarray(ternary_spgemm(X_float, cls.from_dense(W), b))
+        assert reference.compare_results(got_i, want), cls.__name__
 
 
 def test_empty_column_and_row():
@@ -153,7 +159,7 @@ def test_empty_column_and_row():
         if spec.approximate:
             continue
         fmt = _build(spec.format_cls, W)
-        got = np.asarray(spec(X, fmt, b))
+        got = np.asarray(run_kernel(spec, X, fmt, b))
         assert reference.compare_results(got, want), name
 
 
@@ -182,27 +188,10 @@ def test_basetcsc_chunked_matches_unchunked(monkeypatch):
         direct, np.asarray(xla_kernels.tcsc_kernel(X, fmt, b, a)))
 
 
-@pytest.mark.parametrize("fuse_split", [True, False])
-@pytest.mark.parametrize("stacked", [True, False])
-def test_bitplane_i8_fuse_split_paths(problem, fuse_split, stacked):
-    """The v4 in-kernel int8 split (fuse_split=True, the default) and the v3
-    two-operand pre-pass must agree exactly with the dense reference in both
-    stacked and unstacked tile modes (VERDICT round-3 next #2)."""
-    from ternary_spgemm_tpu.ops.pallas_kernels import (
-        pallas_tiled_bitplane_i8_kernel)
-
-    W, X, b, alpha, _, want_prelu = problem
-    fmt = _build(TiledBitplane, W)
-    got = np.asarray(pallas_tiled_bitplane_i8_kernel(
-        X, fmt, b, alpha, fuse_split=fuse_split, stacked=stacked))
-    res = reference.compare_results(got, want_prelu)
-    assert res, f"fuse_split={fuse_split} stacked={stacked}: {res}"
-
-
 @pytest.mark.parametrize("M_big", [200, 300])
 def test_bitplane_family_unstacked_large_m(M_big):
-    """M > 128 takes the v3 UNstacked tile path (docs/perf.md §13) — cover
-    both the gm=1 and gm=2 grids of that branch in interpret mode."""
+    """Prefill-sized M: several row blocks of the Triton grid (interpreted),
+    and the XLA kernels, with the PReLU epilogue."""
     import jax.numpy as jnp
 
     from ternary_spgemm_tpu.ops import all_kernels
@@ -216,34 +205,12 @@ def test_bitplane_family_unstacked_large_m(M_big):
         + np.asarray(b)[None, :]
     want = np.where(want > 0, want, np.asarray(a)[None, :] * want)
     reg = all_kernels()
-    for name in ("PallasTiledBitplane_i8", "PallasTiledBitplane_x8",
-                 "PallasTiledBitplane_bf16"):
-        Xk = jnp.clip(Xb, -reg[name].x_absmax, reg[name].x_absmax)
+    for name in ("TritonTiledBitplane_x8", "TiledBitplane_x8",
+                 "TiledBitplane"):
+        lim = reg[name].x_absmax or 512
+        Xk = jnp.clip(Xb, -lim, lim)
         wk = np.asarray(Xk, np.float64) @ np.asarray(W, np.float64) \
             + np.asarray(b)[None, :]
         wk = np.where(wk > 0, wk, np.asarray(a)[None, :] * wk)
-        got = np.asarray(reg[name].fn(Xk, fmt, b, a))
+        got = np.asarray(run_kernel(reg[name], Xk, fmt, b, a))
         np.testing.assert_allclose(got, wk, atol=1e-5, err_msg=name)
-
-
-def test_stack_mode_tile_rule(problem):
-    """stack_mode() flips the serving-M single-step N-split OFF at trace
-    time (the measured in-stack rule, docs/perf.md §16) and restores the
-    isolated-call rule on exit — and the kernel stays correct either way."""
-    from ternary_spgemm_tpu.ops import stack_mode, ternary_spgemm
-    from ternary_spgemm_tpu.ops.pallas_kernels import _bitplane_tiles
-
-    assert _bitplane_tiles(32, 4096, 1)[:3] == (32, 2048, 2)
-    with stack_mode():
-        assert _bitplane_tiles(32, 4096, 1)[:3] == (32, 4096, 1)
-        with stack_mode(False):
-            assert _bitplane_tiles(32, 4096, 1)[:3] == (32, 2048, 2)
-        assert _bitplane_tiles(32, 4096, 1)[:3] == (32, 4096, 1)
-    assert _bitplane_tiles(32, 4096, 1)[:3] == (32, 2048, 2)
-
-    W, X, b, alpha, want, _ = problem
-    fmt = _build(TiledBitplane, W)
-    with stack_mode():
-        got = np.asarray(ternary_spgemm(
-            X, fmt, b, kernel="PallasTiledBitplane_i8"))
-    assert np.abs(got - want).max() <= 1e-5

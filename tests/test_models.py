@@ -169,7 +169,7 @@ def test_exported_layer_is_pytree_and_literal_free():
     the lowered HLO must contain no large weight literals — closure-captured
     container leaves inline as constants, which ships the weight bytes with
     every compile and keys the compile cache on weight values
-    (docs/perf.md §10)."""
+    (docs/perf.md)."""
     import re
     from ternary_spgemm_tpu.formats import TCSC
     from ternary_spgemm_tpu.models import ExportedBitLinear

@@ -2,11 +2,13 @@
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tools")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import sweep  # noqa: E402
 import sweep_sanitize  # noqa: E402
@@ -80,7 +82,7 @@ def test_sweep_cli_smoke(tmp_path):
         [sys.executable, "tools/sweep.py", "--m-values", "4", "--kn", "32x64",
          "--s-values", "4", "--kernels", "DenseMXU", "--platform", "cpu",
          "--min-seconds", "0.01", "--output", out_path],
-        capture_output=True, text=True, cwd="/root/repo", timeout=600)
+        capture_output=True, text=True, cwd=REPO, timeout=600)
     assert "wrote 1 records" in out.stdout, out.stdout + out.stderr[-500:]
     recs = json.load(open(out_path))
     assert recs[0]["test_case"] == {"M": 4, "K": 32, "N": 64, "s": 4}
@@ -93,11 +95,11 @@ def test_model_bench_cli_smoke(tmp_path):
     out = subprocess.run(
         [sys.executable, "tools/model_bench.py", "--preset", "test",
          "--format", "TiledBitplane", "--platform", "cpu",
-         "--min-seconds", "0.01", "--kernels", "PallasTiledBitplane_i8",
+         "--min-seconds", "0.01", "--kernels", "TiledBitplane",
          "--output", out_path],
-        capture_output=True, text=True, cwd="/root/repo", timeout=900)
+        capture_output=True, text=True, cwd=REPO, timeout=900)
     res = json.load(open(out_path))["results"]
     assert res["qat_train_step"]["seconds"] > 0, out.stdout + out.stderr[-500:]
     assert res["qat_forward"]["seconds"] > 0
-    assert res["exported/PallasTiledBitplane_i8"]["seconds"] > 0
+    assert res["exported/TiledBitplane"]["seconds"] > 0
     assert res["a8_block"]["seconds"] > 0

@@ -62,7 +62,7 @@ def cmd_export(args) -> int:
     lm = ExportedTransformerLM.from_params(
         model, params, fmt_cls, kernel=args.kernel, a8=args.a8,
         with_transpose=not args.serving_only,
-        fused_ffn=args.fused_ffn, fused_qkv=args.fused_qkv, auto=args.auto,
+        fused_qkv=args.fused_qkv, auto=args.auto,
         head_dtype=jnp.bfloat16 if args.head_dtype == "bf16" else None)
     checkpoint.save_lm_bundle(args.out, lm)
     size = os.path.getsize(args.out if args.out.endswith(".npz")
@@ -117,11 +117,10 @@ def main(argv=None) -> int:
     pe.add_argument("--serving-only", action="store_true",
                     help="skip the transposed containers (forward-only "
                          "export; halves bundle size + export time)")
-    pe.add_argument("--fused-ffn", action="store_true")
     pe.add_argument("--fused-qkv", action="store_true")
     pe.add_argument("--auto", action="store_true",
-                    help="pick fused_ffn/fused_qkv by MEASUREMENT at the "
-                         "decode shape (autotune_serving_flags)")
+                    help="pick fused_qkv by MEASUREMENT at the decode shape "
+                         "(autotune_serving_flags)")
     pe.add_argument("--head-dtype", default="f32", choices=["f32", "bf16"],
                     help="logits-head embedding storage (bf16 halves the "
                          "per-step head bytes)")

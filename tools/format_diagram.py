@@ -95,9 +95,6 @@ def draw_bitplane(outdir: str) -> str:
             va="center", fontsize=10)
     _grid(ax, neg, 0, -10.8, lambda v: NEG, fmt=lambda v: f"{v:08b}")
     ax.text(8.4, -11.3, "neg plane byte-row", va="center", fontsize=10)
-    _grid(ax, f.wsum[0, 0, 0, :8], 0, -12.4, lambda v: ZERO)
-    ax.text(8.4, -12.9, "wsum (per-tile column sums, int32)",
-            va="center", fontsize=10)
     ax.text(0, -14.0,
             "kernel decode: widen byte-row to int32, deposit bits to bytes\n"
             "((x & 0xF) * 0x00204081) & 0x01010101, bitcast int32->4x int8 "

@@ -1,29 +1,22 @@
 #!/usr/bin/env python
 """End-to-end serving benchmark: whole-model tokens/sec for BitNet configs.
 
-`tools/model_bench.py` times one BLOCK; this times the real serving loop —
-``models/generate.py``'s prefill + KV-cached scan decode, with every fast
-path on (fused SwiGLU FFN, merged QKV, W1.58-A8 activations, int8 KV
-cache) — and attributes the per-step cost against the per-block bound so
-loop overhead (sampling, cache plumbing, the logits head) is measured, not
-assumed (round-4 VERDICT weak #4: the 128.5 us block number implied
-~240 tok/s/chip at 7B; nothing verified the loop doesn't eat the 9.1% the
-fusion round bought).
+Times the real serving loop — ``models/generate.py``'s prefill and KV-cached
+scan decode with every serving path on (merged QKV, W1.58-A8 activations,
+int8 KV cache) — on one GPU, and prints one JSON record with the device it
+ran on. It is a measurement path: without a GPU it stops.
 
 Model construction bypasses the QAT param tree: weights come straight from
-the native ternary generator into `ExportedBitLinear.from_dense(...,
-a8=True, with_transpose=False)` containers (the serving export), so a 7B
-build is native-generator + native-bitplane-packer bound, not f32-quantize
-bound. Ternary density s=2 (≈half nonzero — the BitNet b1.58 regime).
+the native ternary generator into ``ExportedBitLinear.from_dense(...,
+a8=True, with_transpose=False)`` containers (the serving export). Ternary
+density s=2 (about half nonzero — the BitNet b1.58 regime).
 
 Timing uses the calibrated device-loop slope protocol (bench/timing.py).
 Integer token inputs cannot ride as the perturbed while-carry, so each
 timed fn takes an f32 dummy carry whose (runtime-zero) minimum is added to
 the first token — a real data dependency, a no-op value.
 
-Output: bench_artifacts/serving_tokens.json.
-Run (TPU): setsid nohup python -u tools/serving_bench.py --preset bitnet7b \
-           > /tmp/serving7b.log 2>&1 &
+Run: python tools/serving_bench.py --preset bitnet3b --batch 4
 Reference counterpart: none (net-new serving obligation).
 """
 
@@ -49,68 +42,82 @@ PRESETS = {
 }
 
 
+def weight_generator():
+    """``(gen(K, N, s, seed) -> int8 (K, N), name)``: the native ternary
+    generator when ``native/`` is built, else the numpy one."""
+    from ternary_spgemm_tpu import native
+    from ternary_spgemm_tpu.formats import generate_ternary
+
+    if native.native_available():
+        return native.gen_ternary, "native"
+    return (lambda K, N, s, seed: generate_ternary(K, N, s, seed=seed)), "numpy"
+
+
 def build_serving_lm(cfg, *, s: int = 2, seed: int = 0, head_dtype=None,
-                     fused_ffn: bool = True, fused_qkv: bool = True,
+                     fused_qkv: bool = True, keep_dense: bool = False,
                      verbose=print):
-    """A serving-export LM with the chosen fast paths, weights straight
-    from the ternary generator (no QAT param tree, no transposes)."""
+    """A serving-export LM, weights straight from the ternary generator (no
+    QAT param tree, no transposes): every projection a W1.58-A8
+    ``TiledBitplane`` layer, q/k/v merged when ``fused_qkv``.
+
+    ``keep_dense=True`` returns ``(lm, layers)`` where ``layers`` holds the
+    dense int8 matrices, scales and norm weights of each block in the form
+    :func:`ternary_spgemm_tpu.reference.ternary_lm_logits` takes."""
     import jax
     import jax.numpy as jnp
 
-    from ternary_spgemm_tpu import native
-    from ternary_spgemm_tpu.formats import TiledBitplane, generate_ternary
+    from ternary_spgemm_tpu.formats import TiledBitplane
     from ternary_spgemm_tpu.models.exported import ExportedBitLinear
     from ternary_spgemm_tpu.models.generate import ExportedTransformerLM
     from ternary_spgemm_tpu.models.transformer import ExportedTransformerBlock
 
-    gen = native.gen_ternary if native.native_available() else \
-        (lambda K, N, s, seed: generate_ternary(K, N, s, seed=seed))
+    gen, _ = weight_generator()
     d, ff, kvw = cfg.d_model, cfg.d_ff, cfg.kv_width
-    gamma = 0.03  # serving-realistic absmean scale; timing-irrelevant
+    gamma = 0.03  # serving-realistic absmean scale
 
     def lin(W, n_out):
         return ExportedBitLinear.from_dense(
             W, TiledBitplane, gamma=gamma, bias=np.zeros(n_out, np.float32),
             with_transpose=False, a8=True)
 
-    blocks = []
+    blocks, dense = [], []
     t0 = time.time()
     for li in range(cfg.n_layers):
         sd = seed + 100 * li
-        Wq = gen(d, d, s, seed=sd + 1)
-        Wk = gen(d, kvw, s, seed=sd + 2)
-        Wv = gen(d, kvw, s, seed=sd + 3)
-        linears = {
-            "wq": lin(Wq, d), "wk": lin(Wk, kvw), "wv": lin(Wv, kvw),
-            "wo": lin(gen(d, d, s, seed=sd + 4), d),
-            "w_gate": lin(gen(d, ff, s, seed=sd + 5), ff),
-            "w_up": lin(gen(d, ff, s, seed=sd + 6), ff),
-            "w_down": lin(gen(ff, d, s, seed=sd + 7), d),
-        }
+        Ws = {"wq": gen(d, d, s, seed=sd + 1), "wk": gen(d, kvw, s, seed=sd + 2),
+              "wv": gen(d, kvw, s, seed=sd + 3), "wo": gen(d, d, s, seed=sd + 4),
+              "w_gate": gen(d, ff, s, seed=sd + 5),
+              "w_up": gen(d, ff, s, seed=sd + 6),
+              "w_down": gen(ff, d, s, seed=sd + 7)}
+        linears = {n: lin(W, W.shape[1]) for n, W in Ws.items()}
         qkv = None
         if fused_qkv:
             w3 = d + 2 * kvw
             qkv = {"fmt": jax.tree_util.tree_map(
-                       jnp.asarray,
-                       TiledBitplane.from_dense(np.hstack([Wq, Wk, Wv]))),
+                       jnp.asarray, TiledBitplane.from_dense(
+                           np.hstack([Ws["wq"], Ws["wk"], Ws["wv"]]))),
                    "scale": jnp.full((w3,), gamma, jnp.float32),
                    "bias": jnp.zeros((w3,), jnp.float32)}
         blocks.append(ExportedTransformerBlock(
             cfg, linears, np.ones(d, np.float32), np.ones(d, np.float32),
-            fused_ffn=fused_ffn, qkv=qkv))
+            qkv=qkv))
+        if keep_dense:
+            dense.append({**Ws, **{f"g_{n}": np.float32(gamma) for n in Ws},
+                          "norm_attn": np.ones(d, np.float32),
+                          "norm_ffn": np.ones(d, np.float32)})
         if li == 0 or (li + 1) % 8 == 0:
             verbose(f"built block {li + 1}/{cfg.n_layers} "
                     f"({time.time() - t0:.0f}s)")
     embed = 0.02 * jax.random.normal(jax.random.key(seed + 9),
                                      (cfg.vocab, d), jnp.float32)
-    return ExportedTransformerLM(cfg, blocks, embed, np.ones(d, np.float32),
-                                 head_dtype=head_dtype)
+    lm = ExportedTransformerLM(cfg, blocks, embed, np.ones(d, np.float32),
+                               head_dtype=head_dtype)
+    return (lm, dense) if keep_dense else lm
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--preset", choices=sorted(PRESETS), default="bitnet7b")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--preset", choices=sorted(PRESETS), default="bitnet3b")
     p.add_argument("--s", type=int, default=2)
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--cache-dtype", default="int8", choices=["int8", "f32"])
@@ -118,37 +125,26 @@ def main(argv=None) -> int:
                    help="logits-head embedding storage: bf16 halves the "
                         "per-step head bytes (the head streams the whole "
                         "(vocab, d) matrix every decode step)")
-    p.add_argument("--fast-paths", default="both",
-                   choices=["both", "qkv", "ffn", "none"],
-                   help="serving fast paths to build (the MEASURED winner "
-                        "at the decode shape is qkv — fused_block_decode"
-                        "*.json; 'both' kept as the prior default)")
     p.add_argument("--kv-heads", type=int, default=0,
                    help="grouped-query attention: number of shared KV heads "
-                        "(0 = n_heads, MHA). Shrinks KV cache + decode "
-                        "attention bytes by n_heads/kv_heads")
-    p.add_argument("--batch", type=int, default=1,
-                   help="decode batch size B: weights dominate the step, "
-                        "so B<=32 rides the same padded MXU tile and "
-                        "multiplies aggregate tokens/s nearly for free")
-    p.add_argument("--trace", action="store_true",
-                   help="after timing, capture a device trace of one "
-                        "decode step and record the top ops by device "
-                        "time (attributes the glue)")
+                        "(0 = n_heads, MHA)")
+    p.add_argument("--batch", type=int, default=1, help="decode batch B")
+    p.add_argument("--trace", default=None,
+                   help="directory for a profiler trace of a few decode "
+                        "steps, taken after the timing")
     p.add_argument("--output", default=None)
     args = p.parse_args(argv)
-
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
 
     import jax
     import jax.numpy as jnp
 
+    from ternary_spgemm_tpu import platform
     from ternary_spgemm_tpu.bench.timing import time_device_loop
     from ternary_spgemm_tpu.models import BitTransformerConfig
     from ternary_spgemm_tpu.models.generate import generate, init_cache
 
+    platform.configure_compile_cache()
+    dev = platform.require_gpu()
     shape = PRESETS[args.preset]
     cfg = BitTransformerConfig(
         vocab=shape["vocab"], d_model=shape["d_model"],
@@ -158,25 +154,20 @@ def main(argv=None) -> int:
     B, max_t = args.batch, T0 + n_new
     cache_dtype = jnp.int8 if args.cache_dtype == "int8" else jnp.float32
 
-    np.array(jax.device_put(np.zeros(8, np.float32)))  # warm transfer path
     t0 = time.time()
     head_dtype = jnp.bfloat16 if args.head_dtype == "bf16" else None
-    lm = build_serving_lm(
-        cfg, s=args.s, head_dtype=head_dtype,
-        fused_ffn=args.fast_paths in ("both", "ffn"),
-        fused_qkv=args.fast_paths in ("both", "qkv"))
+    lm = build_serving_lm(cfg, s=args.s, head_dtype=head_dtype)
     build_s = time.time() - t0
     print(f"build: {build_s:.0f}s", flush=True)
 
     prompt = jax.random.randint(jax.random.key(42), (B, T0), 0, cfg.vocab)
     caches0 = init_cache(cfg, B, max_t, dtype=cache_dtype)
 
-    # ---- correctness sanity: the real generate() loop produces tokens ----
+    # the real generate() loop produces tokens in range
     toks = np.asarray(generate(lm, prompt[:, :8], 4, max_t=max_t,
                                cache_dtype=cache_dtype))
     assert toks.shape == (B, 12) and (0 <= toks).all() and \
         (toks < cfg.vocab).all()
-    print("generate() sanity OK", flush=True)
 
     dummy = jnp.zeros((8,), jnp.float32)
 
@@ -186,20 +177,15 @@ def main(argv=None) -> int:
 
     # The model rides through every timed fn as an AUX ARGUMENT, never a
     # closure capture: captured container leaves inline as HLO literal
-    # constants (2.2 GB at 7B) that ship with every remote compile
-    # (docs/perf.md §10).
-
-    # ---- prefill: T0 tokens in one batched forward filling the caches ----
+    # constants that ship with every compile (docs/perf.md).
     def fill_fn(dz, m, pr, cs):
-        logits, cs2 = m.prefill(dep(pr, dz), cs)
+        logits, _ = m.prefill(dep(pr, dz), cs)
         return logits[:, -1]
 
     r_fill = time_device_loop(fill_fn, dummy, aux=(lm, prompt, caches0),
                               repeats=args.repeats, min_seconds=0.5)
-    print(f"prefill: {r_fill.seconds * 1e3:.2f} ms "
-          f"({T0 / r_fill.seconds:.0f} tok/s)", flush=True)
+    print(f"prefill: {r_fill.seconds * 1e3:.3f} ms", flush=True)
 
-    # ---- decode: the generate() scan loop (argmax sampling included) ----
     _, caches_f = jax.jit(lambda m, pr, cs: m.prefill(pr, cs))(
         lm, prompt, caches0)
     first = jnp.zeros((B,), prompt.dtype)
@@ -210,114 +196,40 @@ def main(argv=None) -> int:
             logits, caches = m.decode_step(cur, caches, t)
             nxt = jnp.argmax(logits, axis=-1).astype(fr.dtype)
             return (caches, nxt), cur
-        (cs2, last), _ = jax.lax.scan(
+        (_, last), _ = jax.lax.scan(
             scan_fn, (cs, dep(fr, dz)), jnp.arange(T0, T0 + n_new))
         return last.astype(jnp.float32)
 
     r_dec = time_device_loop(decode_fn, dummy, aux=(lm, first, caches_f),
                              repeats=args.repeats, min_seconds=0.5)
-    step_us = r_dec.seconds / n_new * 1e6
-    print(f"decode: {step_us:.1f} us/token ({1e6 / step_us:.0f} tok/s)",
-          flush=True)
+    step_s = r_dec.seconds / n_new
+    print(f"decode: {step_s * 1e6:.1f} us/step", flush=True)
 
-    # ---- single dispatched decode step (the no-scan serving loop) ----
-    def step_fn(dz, m, fr, cs):
-        logits, _ = m.decode_step(dep(fr, dz), cs, jnp.int32(T0))
-        return logits[:, 0]
-
-    r_step = time_device_loop(step_fn, dummy, aux=(lm, first, caches_f),
-                              repeats=args.repeats)
-
-    # ---- attribution pieces: one block at the decode shape; the head ----
-    x1 = jnp.zeros((B, 1, cfg.d_model), jnp.float32)
-    cache1 = jax.tree_util.tree_map(lambda c: c[...], caches_f[0])
-
-    def block_fn(dz, bk, xx, cc):
-        from ternary_spgemm_tpu.models.generate import (
-            _block_decode, _fused_hooks)
-        from ternary_spgemm_tpu.ops import stack_mode
-        xx = xx + jnp.minimum(dz[0], 0.0)
-        with stack_mode():
-            lin = lambda n, z: bk.linears[n](z.reshape(B, -1))[:, None, :]
-            ffn, qkv = _fused_hooks(bk, B, lambda z: (B, 1))
-            y, c2 = _block_decode(cfg.head_tuple, lin, bk.norm_attn,
-                                  bk.norm_ffn, xx, cc, jnp.int32(T0),
-                                  ffn=ffn, qkv=qkv)
-        return y
-
-    r_blk = time_device_loop(block_fn, dummy, aux=(lm.blocks[0], x1, cache1),
-                             repeats=args.repeats)
-
-    def head_fn(dz, emb, no, xx):
-        from ternary_spgemm_tpu.models.transformer import rms_norm
-        xx = xx + jnp.minimum(dz[0], 0.0)
-        return jnp.einsum("btd,vd->btv", rms_norm(xx, no), emb)[:, 0]
-
-    r_head = time_device_loop(head_fn, dummy, aux=(lm.embed, lm.norm_out, x1),
-                              repeats=args.repeats)
-
-    blk_us = r_blk.seconds * 1e6
-    head_us = r_head.seconds * 1e6
-    layers_us = cfg.n_layers * blk_us
-    glue_us = step_us - layers_us - head_us
     out = {
         "preset": args.preset, "config": shape, "s": args.s,
-        "kv_heads": cfg.kv_heads,
+        "kv_heads": cfg.kv_heads, "batch": B,
         "cache_dtype": args.cache_dtype, "head_dtype": args.head_dtype,
-        "build_seconds": round(build_s, 1),
-        "fast_paths": {"fused_ffn": args.fast_paths in ("both", "ffn"),
-                       "fused_qkv": args.fast_paths in ("both", "qkv"),
-                       "a8": True},
-        "batch": B,
+        "build_seconds": build_s,
         "prefill": {"seconds": r_fill.seconds,
                     "spread": r_fill.seconds_spread,
-                    "tokens_per_s": T0 / r_fill.seconds,
-                    "aggregate_tokens_per_s": B * T0 / r_fill.seconds,
-                    "n_estimates": r_fill.n_estimates},
-        "decode": {"seconds_per_token": step_us / 1e6,
+                    "tokens_per_s": B * T0 / r_fill.seconds},
+        "decode": {"seconds_per_step": step_s,
                    "spread": r_dec.seconds_spread,
-                   "tokens_per_s": 1e6 / step_us,
-                   "aggregate_tokens_per_s": B * 1e6 / step_us,
-                   "scan_length": n_new,
-                   "n_estimates": r_dec.n_estimates},
-        "decode_single_dispatch": {"seconds": r_step.seconds,
-                                   "spread": r_step.seconds_spread,
-                                   "tokens_per_s": 1.0 / r_step.seconds},
-        "attribution_us": {
-            "step": round(step_us, 2),
-            "per_block": round(blk_us, 2),
-            "blocks_total": round(layers_us, 2),
-            "head": round(head_us, 2),
-            "glue": round(glue_us, 2),
-            "glue_fraction": round(glue_us / step_us, 4),
-        },
+                   "tokens_per_s": B / step_s, "scan_length": n_new},
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }
     if args.trace:
-        # device-trace attribution of ONE decode step: where the per-step
-        # time goes below the block level (top ops by total device time;
-        # remember the tracer itself costs ~1.2 us/op, trace_validation.json)
-        from tools.trace_validation import traced_device_us
-        tr = traced_device_us(step_fn, (dummy, lm, first, caches_f),
-                              runs=30, top=40)
-        ops = {k: {"median_us": v["median_us"], "count": v["count"],
-                   "total_us": round(v["median_us"] * v["count"] / 30, 2)}
-               for k, v in tr["ops_us"].items()}
-        out["trace"] = {"module_us": tr.get("device_us"),
-                        "n_events": tr.get("n_events"), "top_ops": ops}
-        print("trace module device us:", tr.get("device_us"), flush=True)
-
-    tag = "" if args.head_dtype == "f32" else f"_head{args.head_dtype}"
-    if args.batch > 1:
-        tag += f"_b{args.batch}"
-    if args.kv_heads:
-        tag += f"_gqa{args.kv_heads}"
-    path = args.output or os.path.join(
-        os.path.dirname(__file__), "..", "bench_artifacts",
-        f"serving_tokens_{args.preset}{tag}.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps({k: out[k] for k in
-                      ("prefill", "decode", "attribution_us")}, indent=1))
+        dec = jax.jit(decode_fn)
+        jax.block_until_ready(dec(dummy, lm, first, caches_f))
+        jax.profiler.start_trace(args.trace, create_perfetto_trace=True)
+        for _ in range(3):
+            jax.block_until_ready(dec(dummy, lm, first, caches_f))
+        jax.profiler.stop_trace()
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
     return 0
 
 

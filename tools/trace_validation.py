@@ -1,30 +1,29 @@
 #!/usr/bin/env python
-"""Trace-validate the dispatch-floor attribution with DEVICE-side durations.
+"""Device time from a ``jax.profiler`` trace of a GPU run.
 
-Every performance number in this repo flows through the wall-clock slope
-harness (``bench/timing.py``); the load-bearing attribution — "the ~1.3 us
-gap between the isolated record and the kernel body is the dispatch loop, a
-bare XLA add pays the same floor" (docs/perf.md §14, kernel_v4_study.json) —
-was inferred from slope *differences*. The reference never ships an
-attribution without a counter reading next to it (`perf.cpp:313-329` prints
-the PMU counters with every result). This tool is that counter reading:
-``jax.profiler`` device traces of the flagship call, the ladder bodies, and
-the L-layer chains, with per-invocation XLA-module DEVICE durations
-extracted from the perfetto trace and committed next to the slope numbers
-(``bench_artifacts/trace_validation.json``).
+Wall-clock slopes (``bench/timing.py``) time a call from the host; this
+reduces the profiler's perfetto trace to what ran on the card. In a trace
+taken on an NVIDIA GPU (read by hand from an H100 run):
 
-What "validated" means here, per target:
+* the device is the process named ``/device:GPU:<n>``; the host is
+  ``/host:CPU``;
+* every kernel and device copy is an event on one of the device's threads
+  named ``Stream #<n>(...)``, and its ``args`` carry the XLA module
+  (``hlo_module``, e.g. ``jit_step``) and the HLO op (``hlo_op``) it
+  belongs to; the event's name is the kernel's (a fusion, a cuBLAS or Triton
+  GEMM, or a Pallas kernel under its ``name=``);
+* host threads hold the Python and runtime spans (``<module>:XLA GPU
+  module``, ``PjitFunction(...)``), which this reducer ignores.
 
-* ``flagship`` (isolated north-star call): trace device time ~= the claimed
-  ~3.6 us kernel body; slope (~4.9) - device = the floor, ~= the bare-add
-  floor measured the same way.
-* ``bare_add``: device time <<1 us, slope ~1.3 us -> the floor is
-  DISPATCH, not device work, now measured directly instead of inferred.
-* ``chain8``/``chain16`` (chained fullwidth, the deployed regime): device
-  time deltas give a slope-free SECOND estimate of the stacked marginal to
-  cross-check ``chain_amortized.json``'s 2.65 us = 0.97 x bytes-bound.
+:func:`parse_perfetto` returns the device events grouped by module and by
+kernel name; :func:`traced_device_us` traces ``runs`` calls of a jitted
+function and reports its device time per call (the sum of its kernels'
+durations, so gaps between kernels do not count).
 
-Run (TPU): setsid nohup python -u tools/trace_validation.py > /tmp/tv.log 2>&1 &
+Usage from Python on the card::
+
+    from tools.trace_validation import traced_device_us
+    r = traced_device_us(fn, args, runs=20)
 """
 
 from __future__ import annotations
@@ -41,13 +40,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-TRACE_RUNS = 200
+TRACE_RUNS = 20
 
 
 def parse_perfetto(log_dir: str) -> dict:
-    """Extract per-invocation device durations from the newest perfetto
-    trace under ``log_dir``: {module_name: [us, ...]} for the 'XLA Modules'
-    thread of the device process, plus {op_name: [us, ...]} for 'XLA Ops'."""
+    """Device events of the newest perfetto trace under ``log_dir``:
+    ``{"modules": {hlo_module: [us, ...]}, "ops": {kernel: [us, ...]}}``,
+    one duration per kernel event on the GPU's stream threads."""
     paths = sorted(glob.glob(os.path.join(
         log_dir, "plugins", "profile", "*", "perfetto_trace.json.gz")))
     if not paths:
@@ -65,21 +64,22 @@ def parse_perfetto(log_dir: str) -> dict:
     for e in events:
         if e.get("ph") != "X":
             continue
-        pname = proc_name.get(e.get("pid"), "")
-        if "device" not in pname.lower():
+        if not proc_name.get(e.get("pid"), "").startswith("/device:GPU"):
             continue
-        tname = thread_name.get((e.get("pid"), e.get("tid")), "")
-        if tname == "XLA Modules":
-            modules.setdefault(e["name"], []).append(float(e["dur"]))
-        elif tname == "XLA Ops":
-            ops.setdefault(e["name"], []).append(float(e["dur"]))
+        if not thread_name.get((e.get("pid"), e.get("tid")), "").startswith(
+                "Stream #"):
+            continue
+        dur = float(e["dur"])
+        module = e.get("args", {}).get("hlo_module", "")
+        modules.setdefault(module, []).append(dur)
+        ops.setdefault(e["name"], []).append(dur)
     return {"modules": modules, "ops": ops}
 
 
 def traced_device_us(fn, args, *, runs: int = TRACE_RUNS,
                      top: int = 8) -> dict:
-    """Trace ``runs`` dispatches of jitted ``fn(*args)``; return the median
-    per-invocation device-module duration (us) + per-op breakdown."""
+    """Trace ``runs`` calls of jitted ``fn(*args)``; return its device time
+    per call in microseconds and the ``top`` kernels by total time."""
     import jax
 
     jf = jax.jit(fn)
@@ -95,136 +95,12 @@ def traced_device_us(fn, args, *, runs: int = TRACE_RUNS,
         parsed = parse_perfetto(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # the target module dominates the trace: pick the name with most events
     if not parsed["modules"]:
         return {"device_us": None, "n_events": 0, "ops_us": {}}
-    name, durs = max(parsed["modules"].items(), key=lambda kv: len(kv[1]))
-    durs = np.asarray(sorted(durs))
-    ops_med = {k: {"median_us": float(np.median(v)), "count": len(v)}
-               for k, v in sorted(
-                   parsed["ops"].items(),
-                   key=lambda kv: -np.median(kv[1]) * len(kv[1]))[:top]}
-    return {"module": name, "n_events": int(len(durs)),
-            "device_us": float(np.median(durs)),
-            "device_us_p10": float(np.percentile(durs, 10)),
-            "device_us_p90": float(np.percentile(durs, 90)),
-            "ops_us": ops_med}
-
-
-def main():
-    import jax
-    import jax.numpy as jnp
-
-    from ternary_spgemm_tpu import native
-    from ternary_spgemm_tpu.bench.timing import time_device_loop
-    from ternary_spgemm_tpu.formats import (
-        TiledBitplane, generate_bias, generate_ternary, generate_x)
-    from ternary_spgemm_tpu.ops import all_kernels
-
-    np.array(jax.device_put(np.zeros(8, np.float32)))  # warm transfer path
-
-    M, K, N, s = 32, 1024, 4096, 4
-    spec = all_kernels()["PallasTiledBitplane_i8"]
-    gen_w = native.gen_ternary if native.native_available() else \
-        generate_ternary
-    L_max = 16
-    fmts = [jax.tree_util.tree_map(
-        jnp.asarray, TiledBitplane.from_dense(gen_w(K, N, s, seed=300 + i)))
-        for i in range(L_max)]
-    biases = [jnp.asarray(generate_bias(N)) for _ in range(L_max)]
-    X = jnp.asarray(generate_x(M, K, seed=1))
-    tiny = jnp.ones((8, 128), jnp.float32)
-
-    def chain(L):
-        def fn(x, fmts_l, bs_l):
-            cur, y = x, None
-            for i in range(L):
-                y = spec.fn(cur, fmts_l[i], bs_l[i], tns=N)
-                cur = jnp.clip(y[:, :K], -512.0, 512.0)
-            return y
-        return fn
-
-    targets = {
-        "bare_add": (lambda t: t + 1.0, (tiny,)),
-        "flagship": (lambda x, f, b: spec.fn(x, f, b), (X, fmts[0], biases[0])),
-        "flagship_fullwidth": (lambda x, f, b: spec.fn(x, f, b, tns=N),
-                               (X, fmts[0], biases[0])),
-        "chain8": (chain(8), (X, fmts[:8], biases[:8])),
-        "chain16": (chain(16), (X, fmts[:16], biases[:16])),
-    }
-
-    out = {"config": {"M": M, "K": K, "N": N, "s": s},
-           "kernel": "PallasTiledBitplane_i8", "trace_runs": TRACE_RUNS,
-           "targets": {}}
-    for name, (fn, args) in targets.items():
-        slope = time_device_loop(fn, args[0], aux=tuple(args[1:]), repeats=3)
-        tr = traced_device_us(fn, args)
-        row = {"slope_us": slope.seconds * 1e6,
-               "slope_spread": slope.seconds_spread, **tr}
-        if tr["device_us"] is not None:
-            row["floor_us"] = slope.seconds * 1e6 - tr["device_us"]
-        out["targets"][name] = row
-        print(f"{name}: slope {row['slope_us']:.3f} us, device "
-              f"{tr.get('device_us')} us, floor {row.get('floor_us')}",
-              flush=True)
-
-    t = out["targets"]
-    verdicts = {}
-    if all(k in t and t[k].get("device_us") is not None
-           for k in ("bare_add", "flagship", "chain8", "chain16")):
-        def main_op_us(row):
-            # the largest-median op = the kernel body (pallas custom-call)
-            return max((v["median_us"] for v in row["ops_us"].values()),
-                       default=None)
-
-        # (1) THE FLOOR, now measured on-device instead of inferred: the
-        # bare add's module costs device time even for a ~0 op (the
-        # in-module sequencer/launch floor), and its slope pays a further
-        # host-dispatch gap on top. Every dispatch — flagship included —
-        # pays both; neither is kernel body time.
-        verdicts["traced_op_floor_us"] = t["bare_add"]["device_us"]
-        verdicts["host_dispatch_gap_us"] = (
-            t["bare_add"]["slope_us"] - t["bare_add"]["device_us"])
-        verdicts["bare_add_slope_us"] = t["bare_add"]["slope_us"]
-        # (2) the stacked marginal two ways. The trace's per-layer delta
-        # exceeds the untraced slope marginal because op-level tracing
-        # itself costs device time per op — the difference BOUNDS the
-        # tracer's per-op overhead (the reference's PMU counter reads cost
-        # cycles the same way, kperf.h).
-        trace_marg = (t["chain16"]["device_us"]
-                      - t["chain8"]["device_us"]) / 8.0
-        slope_marg = (t["chain16"]["slope_us"] - t["chain8"]["slope_us"]) / 8.0
-        verdicts["trace_stacked_marginal_us"] = trace_marg
-        verdicts["slope_stacked_marginal_us"] = slope_marg
-        verdicts["per_op_trace_overhead_us"] = trace_marg - slope_marg
-        # (3) the kernel body: traced pallas-op duration, net of the
-        # measured per-op tracing overhead, vs the slope-inferred body
-        # (slope minus bare-add slope = the §14 subtraction method).
-        body_traced = main_op_us(t["flagship"])
-        if body_traced is not None:
-            verdicts["flagship_traced_op_us"] = body_traced
-            verdicts["flagship_body_net_of_trace_us"] = (
-                body_traced - max(trace_marg - slope_marg, 0.0))
-        verdicts["flagship_body_slope_method_us"] = (
-            t["flagship"]["slope_us"] - t["bare_add"]["slope_us"])
-        chain_ops = [v["median_us"] for v in t["chain16"]["ops_us"].values()]
-        if chain_ops:
-            verdicts["chain_traced_per_layer_op_us"] = float(
-                np.median(chain_ops))
-        # the two independent body estimates should agree within the
-        # tracer's own overhead bound
-        if body_traced is not None:
-            a = verdicts["flagship_body_net_of_trace_us"]
-            b = verdicts["flagship_body_slope_method_us"]
-            verdicts["body_estimates_agree_within_us"] = abs(a - b)
-    out["verdicts"] = verdicts
-
-    path = os.path.join(os.path.dirname(__file__), "..", "bench_artifacts",
-                        "trace_validation.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(verdicts, indent=1))
-
-
-if __name__ == "__main__":
-    main()
+    # the traced function's module holds the most device time
+    name, durs = max(parsed["modules"].items(), key=lambda kv: sum(kv[1]))
+    ops = sorted(parsed["ops"].items(), key=lambda kv: -sum(kv[1]))[:top]
+    return {"module": name, "n_events": len(durs),
+            "device_us": float(np.sum(durs)) / runs,
+            "ops_us": {k: {"total_us_per_call": float(np.sum(v)) / runs,
+                           "count": len(v)} for k, v in ops}}
